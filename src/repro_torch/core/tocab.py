@@ -241,21 +241,16 @@ def reduce_partials(bg: BlockedGraph, partials: torch.Tensor,
     return out[:-1]
 
 
-def _reconcile_fused(schedule: str, impl: str,
-                     schedule_arg: str, impl_arg: str):
+def _reconcile_fused(schedule: str, impl: str):
     """``fused`` × ``balanced`` is not a valid pairing — the fused pipeline
     runs every block through one kernel (its bin awareness is a visit
-    *order*, not per-bin strategies).  Whichever side the tuner picked
-    (``"auto"``) yields; an explicit conflict is an error."""
+    *order*, not per-bin strategies).  In the reference a side the tuner
+    picked (``"auto"``) yields; the port has no tuner yet (ROADMAP A8), so
+    the conflict is always explicit and an error."""
     if impl == "fused" and schedule == "balanced":
-        if impl_arg == "auto":
-            return schedule, "slab"
-        if schedule_arg == "auto":
-            return "uniform", impl
         raise ValueError(
             "impl='fused' is incompatible with schedule='balanced' — use "
-            "schedule='uniform' (or 'auto') with the fused pipeline")
-    return schedule, impl
+            "schedule='uniform' with the fused pipeline")
 
 
 def _dispatch(schedule: str, impl: str, allow_fallback) -> str:
@@ -270,7 +265,7 @@ def _dispatch(schedule: str, impl: str, allow_fallback) -> str:
         raise NotImplementedError(
             "allow_fallback=True arms the degradation ladder, which the port "
             "does not have yet (ROADMAP A6)")
-    schedule, impl = _reconcile_fused(schedule, impl, schedule, impl)
+    _reconcile_fused(schedule, impl)
     if schedule == "balanced":
         raise NotImplementedError(
             "schedule='balanced' (per-bin strategies) is not ported yet "

@@ -20,7 +20,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.balance import UNWEIGHTED, fused_block_order
+from repro_torch.core.balance import UNWEIGHTED
 from repro_torch.core.partition import BlockedGraph
 from repro_torch.core.tocab import _require_direction
 from repro_torch.obs.metrics import registry as _obs
@@ -127,13 +127,11 @@ def fused_push(
     block_order: Optional[Sequence[int]] = None,
 ):
     """Push with no ``block_contrib`` slab.  Blocks own disjoint destination
-    windows, so ``block_order`` (by default the balance module's bin-major
-    order when a schedule is attached) cannot change the result; it is
+    windows, so ``block_order`` (for example the balance module's bin-major
+    ``fused_block_order``) cannot change the result; a given order is
     validated and otherwise unused."""
     _require_direction(bg, "push")
     _check_epilogue(reduce, epilogue)
-    if block_order is None and bg.schedule is not None:
-        block_order = fused_block_order(bg)
     check_block_order(bg, block_order)
     backend = _backend(values, backend)
     _record_fused(bg, "fused_push", tuple(values.shape[1:]),
