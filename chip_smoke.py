@@ -7,21 +7,31 @@ NVIDIA card.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and build the CUDA kernels from ``src/`` (``nvcc``, seconds).
-2. Kernel vs plain: ``fused_pull`` / ``fused_push`` CUDA kernels against
-   their plain PyTorch versions on the card, on ``rmat_graph(18, 16)``, for
-   every semiring, ``(n,)`` and ``(n, 8)`` values, weighted and unweighted,
-   with and without the epilogue, on two block sizes (the shared-memory and
-   the global-memory push paths).
+   versions, and build every CUDA kernel from ``src/`` (``nvcc``, all
+   sources at once, seconds).
+2. Kernel vs plain, on ``rmat_graph(18, 16)``: the ``fused_pull`` /
+   ``fused_push`` kernels against their plain PyTorch versions for every
+   semiring, ``(n,)`` and ``(n, 8)`` values, weighted and unweighted, with
+   and without the epilogue, on two block sizes (the shared-memory and the
+   global-memory push paths); the ``tocab_spmm`` kernel against its plain
+   version on both block sizes, every block dense (thresholds ``(0, 0)``)
+   and the ``"auto"`` dense bin (a ``block_ids`` subset at the bin's
+   budget), ``(n,)`` and ``(n, 8)``, weighted and unweighted, and with a
+   NaN that only padding slots read.
 3. Main path: a Graph500 Kronecker graph (``rmat_graph(24, 16, seed=1,
    weights=True)``: 16.8 M vertices, ranks larger than the 50 MB L2) →
-   ``build_blocked`` pull and push on the card → PageRank ``base``,
+   ``build_blocked`` pull and push on the card, with per-graph
+   (``"auto"``) sparsity bins, whose summaries are printed (the pull
+   layout must have a dense block).  Two paths, each with the launch counts
+   set to 0 just before it and read just after: (a) PageRank ``base``,
    ``gc-pull`` / ``gc-push`` fused, ``gc-pull`` slab to ``tol=1e-6``, and
-   SpMV ``gc-pull`` fused with ``scale=``; the fused results are checked
-   against the flat ``base`` path, and the kernels' launch counts against
-   zero.
+   SpMV ``gc-pull`` fused with ``scale=``; (b) PageRank ``gc-pull`` /
+   ``gc-push`` and SpMV ``gc-pull`` on ``schedule="balanced"``.  Every
+   result is checked against the flat ``base`` path, and each path's
+   kernels' launch counts against zero (``tocab_spmm``: at least once per
+   balanced ``gc-pull`` iteration and once for the SpMV).
 4. Each kernel timed at the main path's shapes beside its plain version,
-   its byte bound and a ``torch.sparse`` CSR product of the same matrix.
+   its bound and a ``torch.sparse`` CSR product of the same matrix.
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -70,6 +80,13 @@ SEED = 1
 REPLACES = {
     "fused_pull": "src/repro/kernels/tocab_fused/kernel.py:137",
     "fused_push": "src/repro/kernels/tocab_fused/kernel.py:247",
+    "tocab_spmm": "src/repro/kernels/tocab_spmm/kernel.py:81",
+}
+
+SOURCES = {
+    "fused_pull": "src/repro_torch/kernels/tocab_fused/csrc/fused_pull.cu",
+    "fused_push": "src/repro_torch/kernels/tocab_fused/csrc/fused_push.cu",
+    "tocab_spmm": "src/repro_torch/kernels/tocab_spmm/csrc/tocab_spmm.cu",
 }
 
 
@@ -196,6 +213,93 @@ def phase_kernels(seed: int, log) -> dict:
     return worst
 
 
+def phase_spmm_kernel(seed: int, log) -> float:
+    """The ``tocab_spmm`` kernel against its plain version; returns the
+    largest error seen."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_blocked, from_edges, rmat_graph
+    from repro_torch.core import balance as TB
+    from repro_torch.kernels.tocab_spmm import tocab_spmm_partials
+
+    t0 = time.perf_counter()
+    g = rmat_graph(18, 16, seed=seed, weights=True)
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    worst = tol_used = 0.0
+    cases = 0
+
+    def check(what, x, bg, **kw):
+        nonlocal worst, tol_used, cases
+        out = tocab_spmm_partials(bg, x, **kw)
+        ref = tocab_spmm_partials(bg, x, use_ref=True, **kw)
+        torch.cuda.synchronize()
+        err, atol, used = check_close(what, out, ref, "sum")
+        worst, tol_used = max(worst, err), max(tol_used, used)
+        cases += 1
+        log(f"ok {what} max_abs_err={err:.3g} atol={atol:.3g} "
+            f"tolerance_used={used:.3g}")
+        return out
+
+    bins = {}
+    for block_size in (4096, 65536):
+        for thresholds in ((0.0, 0.0), "auto"):
+            bg = build_blocked(g, block_size=block_size,
+                               bin_thresholds=thresholds)
+            ids, budget = None, None  # (0, 0): every block, full width
+            if thresholds == "auto":
+                ids = bg.schedule.blocks_in(TB.BIN_DENSE)
+                budget = TB._compact_budget(bg.schedule, TB.BIN_DENSE,
+                                            bg.local_budget)
+                if not 0 < len(ids) < bg.num_blocks:
+                    raise AssertionError(f"B={block_size}: the auto dense "
+                                         f"bin is not a subset: {ids}")
+            bins[f"B={block_size} {thresholds}"] = (
+                bg.num_blocks if ids is None else len(ids))
+            for d in (None, 8):
+                shape = (g.n,) if d is None else (g.n, d)
+                x = torch.from_numpy(
+                    rng.random(shape, dtype=np.float32)).to(dev)
+                for unweighted in (False, True):
+                    check(f"tocab_spmm B={block_size} bins={thresholds} "
+                          f"d={d} unweighted={unweighted}", x, bg,
+                          block_ids=ids, local_budget=budget,
+                          unweighted=unweighted)
+            del bg
+
+    # a NaN that only padding slots read (window offset 0 of every block,
+    # a vertex with no out-edges) must stay out of the slab
+    n, block = 4096, 512
+    src, dst = rng.integers(0, n, 65536), rng.integers(0, n, 65536)
+    keep = (src % block != 0) & (src != dst)
+    small = from_edges(n, src[keep], dst[keep],
+                       vals=rng.random(int(keep.sum()), dtype=np.float32),
+                       dedup=True)
+    bg = build_blocked(small, block_size=block)
+    if bool(bg.edge_mask.all()):
+        raise AssertionError("the NaN case's layout has no padding slots")
+    clean = torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(dev)
+    dirty = clean.clone()
+    dirty[::block], clean[::block] = float("nan"), 0.0
+    out = tocab_spmm_partials(bg, dirty)
+    ref = tocab_spmm_partials(bg, clean, use_ref=True)
+    torch.cuda.synchronize()
+    if not bool(out.isfinite().all()):
+        raise AssertionError("tocab_spmm: a NaN read only by padding "
+                             "reached the slab")
+    err, _, used = check_close("tocab_spmm NaN in padding", out, ref, "sum")
+    worst, tol_used, cases = max(worst, err), max(tol_used, used), cases + 1
+    torch.cuda.synchronize()
+    emit({"phase": "tocab_spmm_vs_plain", "graph": "rmat_graph(18, 16)",
+          "cases": cases, "blocks_run": bins, "max_abs_err": worst,
+          "sum_rtol": SUM_RTOL,
+          "sum_atol": f"{SUM_ATOL_ULPS_OF_MEAN!r} * mean|ref|",
+          "sum_tolerance_used": tol_used,
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
 # --------------------------------------------------------------------- #
 # phase 3: the main path
 # --------------------------------------------------------------------- #
@@ -204,7 +308,8 @@ def phase_main(scale: int, seed: int, log) -> dict:
 
     from repro_torch.core import (DeviceGraph, build_blocked, pagerank,
                                   rmat_graph, spmv)
-    from repro_torch.kernels.tocab_fused import kernel
+    from repro_torch.core.balance import BIN_DENSE
+    from repro_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
     g = rmat_graph(scale, 16, seed=seed, weights=True)
@@ -216,7 +321,10 @@ def phase_main(scale: int, seed: int, log) -> dict:
     layouts = {}
     for direction in ("pull", "push"):
         t0 = time.perf_counter()
-        layouts[direction] = build_blocked(g, direction=direction)
+        # per-graph bin thresholds: under the defaults (4, 32) all three
+        # blocks of this graph (13-19 edges per row) fall in the medium bin
+        layouts[direction] = build_blocked(g, direction=direction,
+                                           bin_thresholds="auto")
         torch.cuda.synchronize()
         builds[direction] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -232,59 +340,103 @@ def phase_main(scale: int, seed: int, log) -> dict:
           "padding_fraction": {"pull": bp.padding_fraction(),
                                "push": bq.padding_fraction()},
           "seconds": builds})
+    for direction, bg in layouts.items():
+        sched = bg.schedule
+        emit({"phase": "schedule", "direction": direction,
+              "thresholds": sched.thresholds, "bins": sched.bins,
+              "summary": sched.summary(),
+              "row_budget_per_bin": sched.row_budget_per_bin,
+              "compact_budget_per_bin": sched.compact_budget_per_bin})
+    if not bp.schedule.blocks_in(BIN_DENSE):
+        raise AssertionError("the pull layout has no dense block: the "
+                             "balanced path would never reach tocab_spmm")
     n, m = g.n, g.m
     del g
-
-    runs = (("base", None, "slab"), ("gc-pull", bp, "fused"),
-            ("gc-push", bq, "fused"), ("gc-pull", bp, "slab"))
+    x = torch.rand(n, generator=torch.Generator().manual_seed(seed)).cuda()
     results = {}
-    torch.cuda.synchronize()
-    kernel.reset_launches()  # counts of the main path's run only
-    for variant, bg, impl in runs:
+
+    def run_pagerank(variant, bg, impl="slab", schedule="uniform"):
         t0 = time.perf_counter()
-        rank, iters = pagerank(dg, bg, variant=variant, impl=impl, tol=1e-6)
+        rank, iters = pagerank(dg, bg, variant=variant, impl=impl,
+                               schedule=schedule, tol=1e-6)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        results[(variant, impl)] = (rank, iters)
+        label = "balanced" if schedule == "balanced" else impl
+        results[(variant, label)] = (rank, iters)
         emit({"phase": "pagerank", "variant": variant, "impl": impl,
-              "iterations": iters, "seconds": secs,
+              "schedule": schedule, "iterations": iters, "seconds": secs,
               "ms_per_iteration": 1e3 * secs / iters,
               "gteps": m * iters / secs / 1e9})
-    x = torch.rand(n, generator=torch.Generator().manual_seed(seed)).cuda()
-    t0 = time.perf_counter()
-    y = spmv(dg, bp, x, variant="gc-pull", impl="fused", scale=2.5)
+
+    def run_spmv(label, **kw):
+        t0 = time.perf_counter()
+        y = spmv(dg, bp, x, variant="gc-pull", scale=2.5, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        emit({"phase": "spmv", "variant": "gc-pull", "scale": 2.5, **kw,
+              "seconds": secs, "gteps": m / secs / 1e9})
+        return y
+
+    # (a) the fused and slab engines (slice 1's path)
     torch.cuda.synchronize()
-    t_spmv = time.perf_counter() - t0
-    launches = dict(kernel.launches)
-    y_base = spmv(dg, None, x, variant="base", scale=2.5)
-    emit({"phase": "spmv", "variant": "gc-pull", "impl": "fused",
-          "scale": 2.5, "seconds": t_spmv, "gteps": m / t_spmv / 1e9})
-    emit({"phase": "main_path_launches", "launches": launches})
+    cuda_build.reset_launches()
+    run_pagerank("base", None)
+    run_pagerank("gc-pull", bp, impl="fused")
+    run_pagerank("gc-push", bq, impl="fused")
+    run_pagerank("gc-pull", bp)
+    y_fused = run_spmv("fused", impl="fused")
+    launches_a = dict(cuda_build.launches)
+    emit({"phase": "main_path_launches", "path": "fused+slab",
+          "launches": launches_a})
     for name in ("fused_pull", "fused_push"):
-        if launches.get(name, 0) == 0:
+        if launches_a.get(name, 0) == 0:
             raise AssertionError(f"main path never launched {name}")
+
+    # (b) the sparsity-balanced engines
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    run_pagerank("gc-pull", bp, schedule="balanced")
+    run_pagerank("gc-push", bq, schedule="balanced")
+    y_bal = run_spmv("balanced", schedule="balanced")
+    launches_b = dict(cuda_build.launches)
+    emit({"phase": "main_path_launches", "path": "balanced",
+          "launches": launches_b})
+    want = results[("gc-pull", "balanced")][1] + 1
+    if launches_b.get("tocab_spmm", 0) < want:
+        raise AssertionError(
+            f"balanced path launched tocab_spmm "
+            f"{launches_b.get('tocab_spmm', 0)} times, fewer "
+            f"than once per gc-pull iteration plus the SpMV ({want})")
 
     # --- outputs: finite, right shape, and equal to the flat base path ---
     base_rank, base_iters = results[("base", "slab")]
+    y_base = spmv(dg, None, x, variant="base", scale=2.5)
     checks = {}
-    for (variant, impl), (rank, iters) in results.items():
+    for (variant, label), (rank, iters) in results.items():
         if rank.shape != (n,) or not bool(torch.isfinite(rank).all()):
-            raise AssertionError(f"{variant}/{impl}: bad ranks")
+            raise AssertionError(f"{variant}/{label}: bad ranks")
         l1 = float((rank - base_rank).abs().sum())
         total = float(rank.sum())
-        checks[f"{variant}/{impl}"] = {"l1_vs_base": l1, "rank_sum": total,
-                                       "iterations": iters,
-                                       "base_iterations": base_iters}
+        checks[f"{variant}/{label}"] = {"l1_vs_base": l1, "rank_sum": total,
+                                        "iterations": iters,
+                                        "base_iterations": base_iters}
         if l1 > PR_L1_TOL or abs(iters - base_iters) > 1 \
                 or abs(total - 1.0) > 1e-3:
-            raise AssertionError(f"{variant}/{impl} disagrees with base: "
-                                 f"{checks[f'{variant}/{impl}']}")
-    err, atol, used = check_close("spmv gc-pull/fused vs base", y, y_base,
-                                  "sum")
-    checks["spmv gc-pull/fused"] = {"max_abs_err_vs_base": err,
-                                    "atol": atol, "tolerance_used": used}
+            raise AssertionError(f"{variant}/{label} disagrees with base: "
+                                 f"{checks[f'{variant}/{label}']}")
+    for label, y in (("fused", y_fused), ("balanced", y_bal)):
+        if y.shape != (n,) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"spmv gc-pull/{label}: bad output")
+        err, atol, used = check_close(f"spmv gc-pull/{label} vs base", y,
+                                      y_base, "sum")
+        checks[f"spmv gc-pull/{label}"] = {"max_abs_err_vs_base": err,
+                                           "atol": atol,
+                                           "tolerance_used": used}
     emit({"phase": "checks", "pr_l1_tol": PR_L1_TOL, "results": checks})
     rank = results[("gc-pull", "fused")][0]
+    launches = {"fused_pull": launches_a.get("fused_pull", 0),
+                "fused_push": launches_a.get("fused_push", 0),
+                "tocab_spmm": launches_b.get("tocab_spmm", 0)}
     return {"dg": dg, "pull": bp, "push": bq, "rank": rank,
             "launches": launches, "n": n, "m": m}
 
@@ -351,7 +503,7 @@ def phase_timing(main: dict, log) -> list:
         ops_ms = 1e3 * (m + 2 * n) / FP32_OPS_PER_S
         records.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/tocab_fused/csrc/{name}.cu",
+            "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": main["launches"].get(name, 0),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -362,9 +514,105 @@ def phase_timing(main: dict, log) -> list:
         })
         log(f"{name}: bytes={nbytes} "
             f"max_abs_err_vs_library={lib_err:.3g}")
+    records.append(time_spmm(main, contrib, log))
+    time_balanced_bins(main, contrib)
     emit({"phase": "memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     return records
+
+
+def time_spmm(main: dict, contrib, log) -> dict:
+    """``tocab_spmm`` on the balanced pull layout's dense bin at the main
+    path's shapes: PageRank contributions, unweighted."""
+    import torch
+
+    from repro_torch.core.balance import BIN_DENSE, _compact_budget
+    from repro_torch.kernels.tocab_spmm.kernel import tocab_spmm_cuda
+    from repro_torch.kernels.tocab_spmm.ref import tocab_spmm_ref
+
+    bg, n = main["pull"], main["n"]
+    B = bg.block_size
+    ids = bg.schedule.blocks_in(BIN_DENSE)
+    budget = _compact_budget(bg.schedule, BIN_DENSE, bg.local_budget)
+    ids_t = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    x2 = contrib[:, None]
+    args = (x2, bg.window_idx, bg.compact_idx, bg.edge_mask, None, ids_t)
+    kw = dict(block_size=B, local_budget=budget)
+    ms = cuda_ms(lambda: tocab_spmm_cuda(*args, **kw), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: tocab_spmm_ref(*args, **kw), reps=3)
+    out, ref = tocab_spmm_cuda(*args, **kw), tocab_spmm_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err, atol, used = check_close("tocab_spmm at main shapes", out, ref,
+                                  "sum")
+    del ref
+
+    # library yardstick: the bin's blocks as one block-diagonal CSR matrix
+    # (rows: block j's compact ids at j·budget; columns: its window at
+    # j·B) times the windows laid end to end
+    k = len(ids)
+    sel = torch.tensor(ids, dtype=torch.long, device="cuda")
+    mask = bg.edge_mask[sel]
+    edges = int(mask.sum())
+    offs = torch.arange(k, device="cuda")[:, None]
+    rows = (bg.compact_idx[sel].long() + offs * budget)[mask]
+    cols = (bg.window_idx[sel].long() + offs * B)[mask]
+    del mask
+    crow = torch.zeros(k * budget + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=k * budget), 0)
+    del rows
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(crow, cols, torch.ones_like(
+            cols, dtype=torch.float32), (k * budget, k * B),
+            check_invariants=False)
+    windows = torch.zeros(k * B, device="cuda")
+    width = 0
+    for j, b in enumerate(ids):
+        w = contrib[b * B: min((b + 1) * B, n)]
+        windows[j * B: j * B + w.numel()] = w
+        width += w.numel()
+    library_ms = cuda_ms(lambda: a @ windows, reps=5)
+    lib_err = float((out.view(-1) - a @ windows).abs().max())
+    del a, cols, crow
+
+    # least bytes: each real edge's widx, cidx, mask (unweighted: no edge
+    # values), the windows read once, the slab written once
+    nbytes = 9 * edges + 4 * width + 4 * k * budget
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * edges / FP32_OPS_PER_S  # one add per edge
+    log(f"tocab_spmm: blocks={list(ids)} edges={edges} budget={budget} "
+        f"bytes={nbytes} max_abs_err_vs_library={lib_err:.3g}")
+    return {
+        "name": "tocab_spmm", "route": "cuda", "source": SOURCES["tocab_spmm"],
+        "replaces": REPLACES["tocab_spmm"],
+        "launches": main["launches"].get("tocab_spmm", 0),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "rtol": SUM_RTOL, "atol": atol, "tolerance_used": used,
+        "dense_blocks": list(ids), "edges": edges, "local_budget": budget,
+    }
+
+
+def time_balanced_bins(main: dict, contrib):
+    """Where a balanced PageRank gather goes: each pull bin's phase-2
+    partials (``bin_pull_partials``, its own strategy) and the whole
+    balanced pull and push, at the main path's shapes."""
+    from repro_torch.core import UNWEIGHTED
+    from repro_torch.core.balance import (BIN_NAMES, balanced_pull,
+                                          balanced_push, bin_pull_partials)
+
+    bp, bq = main["pull"], main["push"]
+    bins = {}
+    for bin_id, name in enumerate(BIN_NAMES):
+        bins[name] = cuda_ms(lambda: bin_pull_partials(
+            bp, bin_id, contrib, "sum", UNWEIGHTED), reps=3)
+    emit({"phase": "balanced_bins", "pull_bin_partials_ms": bins,
+          "balanced_pull_ms": cuda_ms(
+              lambda: balanced_pull(bp, contrib, "sum", UNWEIGHTED), reps=3),
+          "balanced_push_ms": cuda_ms(
+              lambda: balanced_push(bq, contrib, "sum", UNWEIGHTED), reps=3)})
 
 
 def main(argv=None) -> int:
@@ -397,16 +645,17 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
-    from repro_torch.kernels.tocab_fused import kernel
+    from repro_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
-    logs = kernel.build()
+    logs = cuda_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs)})
     for nm, text in logs.items():
         log(f"--- nvcc {nm} ---\n{text}")
 
     phase_kernels(SEED, log)
+    phase_spmm_kernel(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
     records = phase_timing(main_state, log)
     emit({"kernels": records})

@@ -6,6 +6,7 @@ Public surface:
 * :mod:`repro_torch.core.partition` — TOCAB static 1D blocking + local-ID
   compaction
 * :mod:`repro_torch.core.balance` — build-time sparsity classification
+  and the balanced engines
 * :mod:`repro_torch.core.tocab` — blocked pull/push engines + reduction phase
 * :mod:`repro_torch.core.pagerank` / :mod:`repro_torch.core.spmv` — the
   paper's benchmark algorithms
@@ -33,6 +34,9 @@ from .balance import (  # noqa: F401
     BIN_NAMES,
     UNWEIGHTED,
     BlockSchedule,
+    balanced_edge_reduce,
+    balanced_pull,
+    balanced_push,
     fused_block_order,
     make_schedule,
     require_schedule,

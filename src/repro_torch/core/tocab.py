@@ -13,6 +13,8 @@ pipeline live in :mod:`repro_torch.kernels.tocab_fused`):
   blocked gather confined to a cache-sized window + dense compacted
   partials + a separate reduction phase (``impl="slab"``), or the fused
   kernels that fold each block straight into the output (``impl="fused"``).
+  ``schedule="balanced"`` runs the slab phases per sparsity bin
+  (:mod:`repro_torch.core.balance`).
 
 All engines support ``sum`` / ``min`` / ``max`` semirings.  Padded index
 entries (``id_map`` = n, ``edge_perm`` = m) read 0, as the reference's
@@ -254,9 +256,10 @@ def _reconcile_fused(schedule: str, impl: str):
 
 
 def _dispatch(schedule: str, impl: str, allow_fallback) -> str:
-    """Check the engine options this slice of the port supports; returns
-    the implementation to run (``"slab"`` or ``"fused"``).  The options that
-    later slices bring raise instead of quietly running something else."""
+    """Check the engine options the port supports (``schedule`` uniform or
+    balanced); returns the implementation to run (``"slab"`` or
+    ``"fused"``).  The options that later slices bring raise instead of
+    quietly running something else."""
     if schedule == "auto" or impl == "auto":
         raise NotImplementedError(
             "schedule='auto' / impl='auto' resolve through the tuner, which "
@@ -266,11 +269,7 @@ def _dispatch(schedule: str, impl: str, allow_fallback) -> str:
             "allow_fallback=True arms the degradation ladder, which the port "
             "does not have yet (ROADMAP A6)")
     _reconcile_fused(schedule, impl)
-    if schedule == "balanced":
-        raise NotImplementedError(
-            "schedule='balanced' (per-bin strategies) is not ported yet "
-            "(ROADMAP A5)")
-    if schedule != "uniform":
+    if schedule not in ("uniform", "balanced"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if impl == "reference":
         raise NotImplementedError(
@@ -309,20 +308,50 @@ def tocab_pull(
     3 (its reduction) as torch ops; ``impl='fused'`` runs the fused
     pipeline (:func:`repro_torch.kernels.tocab_fused.fused_pull`: the
     hand-written CUDA kernel for a tensor on the card), which never
-    materializes the slab.  ``epilogue=(mul, add)`` applies ``out*mul + add``
-    (sum semiring only).  ``dense_impl`` only concerns
-    ``schedule='balanced'``, which is not ported yet."""
-    del dense_impl
+    materializes the slab.  ``schedule='balanced'`` (slab only) runs each
+    sparsity bin of the build-time schedule on its own strategy
+    (:func:`repro_torch.core.balance.balanced_pull`); ``dense_impl`` picks
+    the dense bin's (``'cuda'``: the ``tocab_spmm`` kernel, the default for
+    tensors on the card; ``'onehot'``: torch ops, the default on the CPU).
+    ``epilogue=(mul, add)`` applies ``out*mul + add`` (sum semiring
+    only)."""
     ri = _dispatch(schedule, impl, allow_fallback)
     if ri == "fused":
         from repro_torch.kernels.tocab_fused import fused_pull
 
         _record_engine("tocab_pull_fused", "pull", bg.num_blocks, bg.m)
         return fused_pull(bg, values, reduce, combine, epilogue)
-    _record_engine("tocab_pull", "pull", bg.num_blocks, bg.m)
-    partials = tocab_pull_partials(bg, values, reduce, combine)
-    return _slab_epilogue(reduce_partials(bg, partials, reduce), reduce,
-                          epilogue)
+    if schedule == "balanced":
+        from .balance import balanced_pull
+
+        out = balanced_pull(bg, values, reduce, combine,
+                            dense_impl=dense_impl)
+    else:
+        _record_engine("tocab_pull", "pull", bg.num_blocks, bg.m)
+        partials = tocab_pull_partials(bg, values, reduce, combine)
+        out = reduce_partials(bg, partials, reduce)
+    return _slab_epilogue(out, reduce, epilogue)
+
+
+def _push_messages(values, id_map, compact_idx, edge_vals, edge_mask,
+                   reduce, combine):
+    """Per-edge push messages of a set of blocks: gather each block's
+    distinct sources once (``block_contrib``), fan out per edge by
+    ``compact_idx``, weight, and neutralize padding with the identity."""
+    block_contrib = _take_fill(values, id_map)  # (k, lb, *tail)
+    tail = values.shape[1:]
+    idx = _bcast(compact_idx.long(), 2 + len(tail)).expand(
+        compact_idx.shape + tail)
+    msgs = torch.gather(block_contrib, 1, idx)
+    ev = edge_vals
+    if ev is not None:
+        ev = _bcast(ev, msgs.ndim)
+    if combine is not None:
+        msgs = combine(msgs, ev)
+    elif ev is not None:
+        msgs = msgs * ev
+    return torch.where(_bcast(edge_mask, msgs.ndim), msgs,
+                       REDUCE_IDENTITY[reduce])
 
 
 def _push_windows(
@@ -331,28 +360,15 @@ def _push_windows(
     reduce: str = "sum",
     combine: Optional[Callable] = None,
 ):
-    """Uniform push body: gather each block's distinct sources once
-    (``block_contrib``), fan out per edge, scatter into the block's
+    """Uniform push body: every block's messages scattered into its
     disjoint destination window."""
     _require_direction(bg, "push")
-    block_contrib = _take_fill(values, bg.id_map)  # (nb, lb, *tail)
-    tail = values.shape[1:]
-    idx = _bcast(bg.compact_idx.long(), 2 + len(tail)).expand(
-        bg.compact_idx.shape + tail)
-    msgs = torch.gather(block_contrib, 1, idx)
-    ev = bg.edge_vals
-    if ev is not None:
-        ev = _bcast(ev, msgs.ndim)
-    if combine is not None:
-        msgs = combine(msgs, ev)
-    elif ev is not None:
-        msgs = msgs * ev
-    msgs = torch.where(_bcast(bg.edge_mask, msgs.ndim), msgs,
-                       REDUCE_IDENTITY[reduce])
+    msgs = _push_messages(values, bg.id_map, bg.compact_idx, bg.edge_vals,
+                          bg.edge_mask, reduce, combine)
     dst_global = bg.window_idx + bg.window_lo()[:, None]
     dst_global = torch.where(bg.edge_mask, dst_global, bg.n)
-    out = segment_reduce(msgs.reshape((-1,) + tail), dst_global.reshape(-1),
-                         bg.n + 1, reduce)
+    out = segment_reduce(msgs.reshape((-1,) + values.shape[1:]),
+                         dst_global.reshape(-1), bg.n + 1, reduce)
     return out[:-1]
 
 
@@ -377,9 +393,14 @@ def tocab_push(
 
         _record_engine("tocab_push_fused", "push", bg.num_blocks, bg.m)
         return fused_push(bg, values, reduce, combine, epilogue)
-    _record_engine("tocab_push", "push", bg.num_blocks, bg.m)
-    return _slab_epilogue(_push_windows(bg, values, reduce, combine),
-                          reduce, epilogue)
+    if schedule == "balanced":
+        from .balance import balanced_push
+
+        out = balanced_push(bg, values, reduce, combine)
+    else:
+        _record_engine("tocab_push", "push", bg.num_blocks, bg.m)
+        out = _push_windows(bg, values, reduce, combine)
+    return _slab_epilogue(out, reduce, epilogue)
 
 
 # ====================================================================== #
@@ -427,8 +448,13 @@ def tocab_edge_reduce(
         _record_engine("tocab_edge_reduce_fused", bg.direction,
                        bg.num_blocks, bg.m)
         return fused_edge_reduce(bg, flat_edge_vals, reduce, epilogue)
-    return _slab_epilogue(_edge_reduce_uniform(bg, flat_edge_vals, reduce),
-                          reduce, epilogue)
+    if schedule == "balanced":
+        from .balance import balanced_edge_reduce
+
+        out = balanced_edge_reduce(bg, flat_edge_vals, reduce)
+    else:
+        out = _edge_reduce_uniform(bg, flat_edge_vals, reduce)
+    return _slab_epilogue(out, reduce, epilogue)
 
 
 def tocab_gather_src(bg: BlockedGraph, values: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ import torch
 import repro_torch.core as T
 from repro_torch.kernels.tocab_fused import (fused_edge_reduce, fused_pull,
                                              fused_push)
-from repro_torch.kernels.tocab_fused import kernel as cuda_kernels
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels.tocab_fused.ref import fused_pull_ref, fused_push_ref
 from repro_torch.obs.metrics import registry as port_registry
 
@@ -244,11 +244,18 @@ def test_fused_obs_counters(port_layouts):
 
 def test_cuda_kernel_loader_is_lazy():
     """Importing the ops builds nothing and launches nothing; the sources
-    the loader compiles are in the checkout."""
-    assert set(cuda_kernels.SOURCES) == {"fused_pull", "fused_push"}
-    for src in cuda_kernels.SOURCES.values():
-        assert (cuda_kernels._CSRC / src).is_file()
-    assert not cuda_kernels._LIBS
+    the shared loader compiles, one per kernel of every family, are in the
+    checkout, each with its library beside it under ``_build/``."""
+    import repro_torch.kernels.tocab_spmm.ops  # noqa: F401
+
+    assert set(cuda_build.SOURCES) == {"fused_pull", "fused_push",
+                                       "tocab_spmm"}
+    for name in cuda_build.SOURCES:
+        src = cuda_build._source(name)
+        assert src.is_file()
+        assert cuda_build._lib_path(name).parent == \
+            src.parent.parent / "_build"
+    assert not cuda_build._LIBS
 
 
 # --------------------------------------------------------------------- #
@@ -282,11 +289,11 @@ def test_cuda_kernel_matches_plain(cuda_layouts, direction, reduce):
             for combine in (None, T.UNWEIGHTED):
                 eps_opts = (None, (0.85, 0.01)) if reduce == "sum" else (None,)
                 for eps in eps_opts:
-                    before = cuda_kernels.launches[f"fused_{direction}"]
+                    before = cuda_build.launches[f"fused_{direction}"]
                     out = fused(bg, x, reduce, combine, eps)
                     ref = plain(bg, x, reduce, combine, eps)
                     torch.cuda.synchronize()
-                    assert cuda_kernels.launches[f"fused_{direction}"] == \
+                    assert cuda_build.launches[f"fused_{direction}"] == \
                         before + 1
                     if reduce == "sum":
                         torch.testing.assert_close(out, ref, rtol=1e-4,

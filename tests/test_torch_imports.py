@@ -14,6 +14,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.obs\n"
         "import repro_torch.kernels.tocab_fused.ops\n"
+        "import repro_torch.kernels.tocab_spmm.ops\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

@@ -133,7 +133,6 @@ def test_spmm_values_match_reference(suite):
 
 
 _LATER_SLICES = [
-    (dict(schedule="balanced"), "A5"),
     (dict(schedule="auto"), "A8"),
     (dict(impl="auto"), "A8"),
     (dict(allow_fallback=True), "A6"),
@@ -142,7 +141,7 @@ _LATER_SLICES = [
 
 
 @pytest.mark.parametrize("kw,item", _LATER_SLICES,
-                         ids=["balanced", "schedule-auto", "impl-auto",
+                         ids=["schedule-auto", "impl-auto",
                               "allow_fallback", "impl-reference"])
 def test_unported_options_raise(kw, item):
     """Options that later slices bring raise NotImplementedError naming
