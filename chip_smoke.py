@@ -18,7 +18,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the ``"auto"`` dense bin (a ``block_ids`` subset at the bin's
    budget), ``(n,)`` and ``(n, 8)``, weighted and unweighted, and with a
    NaN that only padding slots read.
-3. Main path: a Graph500 Kronecker graph (``rmat_graph(24, 16, seed=1,
+3. The attention kernels against their plain versions:
+   ``flash_attention`` over GQA groups 1, 4 and 8, causal and
+   bidirectional, window 0 and 64, softcap 0 and 30, ragged lengths and
+   Sq ≠ Skv, fp32 and bf16; ``flash_decode`` at kv_len = S, inside a
+   split, on a split boundary and 1, splits auto / 1 / 8, softcap, MQA;
+   its split-count invariance and its empty splits; both in fp32 at the
+   main path's shapes (the 8 × 2048 prefill, a 32768-slot cache).  fp32 at
+   rtol = atol = 2e-5, bf16 at one bf16 ulp relative plus two of the mean
+   |entry|.
+4. Main path: a Graph500 Kronecker graph (``rmat_graph(24, 16, seed=1,
    weights=True)``: 16.8 M vertices, ranks larger than the 50 MB L2) →
    ``build_blocked`` pull and push on the card, with per-graph
    (``"auto"``) sparsity bins, whose summaries are printed (the pull
@@ -30,8 +39,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    result is checked against the flat ``base`` path, and each path's
    kernels' launch counts against zero (``tocab_spmm``: at least once per
    balanced ``gc-pull`` iteration and once for the SpMV).
-4. Each kernel timed at the main path's shapes beside its plain version,
-   its bound and a ``torch.sparse`` CSR product of the same matrix.
+5. Each graph kernel timed at the main path's shapes beside its plain
+   version, its bound and a ``torch.sparse`` CSR product of the same matrix.
+6. LM serving, TinyLlama-1.1B at its published width (22 layers, d 2048,
+   32/4 heads, random weights from ``SEED`` on the card): (a) fp32
+   ``forward`` (flash_attention) against 256 ``serve_decode`` steps
+   (flash_decode) for 2 requests, logits, and greedy tokens equal; (b) the
+   serving loop, 8 requests × (512-token prompt + 64 new tokens), bf16,
+   with ``flash_decode`` launched exactly 22 times per decode step and
+   ``flash_attention`` never; (c) ``serve_prefill`` on 8 × 2048 tokens,
+   bf16, with ``flash_attention`` launched exactly 22 times.  Then both
+   kernels timed at those shapes (and ``flash_decode`` at a 32768-slot
+   cache) beside their bounds, plain versions and
+   ``scaled_dot_product_attention``.
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -81,13 +101,43 @@ REPLACES = {
     "fused_pull": "src/repro/kernels/tocab_fused/kernel.py:137",
     "fused_push": "src/repro/kernels/tocab_fused/kernel.py:247",
     "tocab_spmm": "src/repro/kernels/tocab_spmm/kernel.py:81",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:97",
+    "flash_decode": "src/repro/kernels/flash_attention/decode_kernel.py:65",
 }
 
 SOURCES = {
     "fused_pull": "src/repro_torch/kernels/tocab_fused/csrc/fused_pull.cu",
     "fused_push": "src/repro_torch/kernels/tocab_fused/csrc/fused_push.cu",
     "tocab_spmm": "src/repro_torch/kernels/tocab_spmm/csrc/tocab_spmm.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_decode":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
 }
+
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the operation
+#: bound of attention at bf16
+BF16_OPS_PER_S = 989e12
+
+#: attention kernels vs their plain versions in fp32: the reference's own
+#: kernel tolerance (tests/test_kernels.py), rtol = atol = 2e-5
+ATTN_FP32_TOL = 2e-5
+#: in bf16 both compute in fp32 and round the output to bf16 once, so they
+#: differ by one bf16 ulp where a rounding boundary falls between their
+#: fp32 results: rtol 2⁻⁷, one ulp at 1.0.  The absolute part scales with
+#: the data, as SUM_ATOL does: two such ulps of the mean |entry|.  Both are
+#: tighter than the reference's bf16 2e-2, a fixed atol that exceeds the
+#: typical entry of a 32768-slot decode (~0.009).
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL_OF_MEAN = 2.0 ** -6
+
+#: full-width fp32 prefill (forward, flash_attention) vs 256 decode steps
+#: (serve_decode, flash_decode): the reference's test_lm_prefill_matches_
+#: decode tolerance (tests/test_models.py)
+LM_RTOL, LM_ATOL = 1e-3, 1e-4
+
+#: the LM phases: TinyLlama-1.1B at its published width (22 layers)
+LM_ARCH = "tinyllama-1.1b"
 
 
 def emit(record: dict):
@@ -115,6 +165,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` with the host taken out: ``calls`` calls
+    captured in a CUDA graph, the graph replayed and timed with events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=5, warmup=1) / calls
 
 
 # --------------------------------------------------------------------- #
@@ -301,7 +368,7 @@ def phase_spmm_kernel(seed: int, log) -> float:
 
 
 # --------------------------------------------------------------------- #
-# phase 3: the main path
+# phase 4: the main path
 # --------------------------------------------------------------------- #
 def phase_main(scale: int, seed: int, log) -> dict:
     import torch
@@ -442,7 +509,7 @@ def phase_main(scale: int, seed: int, log) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phase 4: kernels at the main path's shapes
+# phase 5: kernels at the main path's shapes
 # --------------------------------------------------------------------- #
 def phase_timing(main: dict, log) -> list:
     import torch
@@ -615,6 +682,399 @@ def time_balanced_bins(main: dict, contrib):
               lambda: balanced_push(bq, contrib, "sum", UNWEIGHTED), reps=3)})
 
 
+# --------------------------------------------------------------------- #
+# phase 3: the attention kernels vs their plain versions
+# --------------------------------------------------------------------- #
+def tol_share(out, ref):
+    """Max |out - ref|, the worst entry's share of ``atol + rtol·|ref|``,
+    and that (rtol, atol): :data:`ATTN_FP32_TOL` for an fp32 ``out``,
+    :data:`BF16_RTOL` and :data:`BF16_ATOL_OF_MEAN` of mean |ref| for bf16.
+    All in fp32."""
+    import torch
+
+    ref = ref.float()
+    if out.dtype == torch.float32:
+        rtol = atol = ATTN_FP32_TOL
+    else:
+        rtol, atol = BF16_RTOL, BF16_ATOL_OF_MEAN * float(ref.abs().mean())
+    diff = (out.float() - ref).abs()
+    share = diff / (atol + rtol * ref.abs())
+    return float(diff.max()), float(share.max()), rtol, atol
+
+
+def phase_attention_kernels(seed: int, log) -> dict:
+    """``flash_attention`` and ``flash_decode`` against their plain versions
+    (``attention_ref``, ``flash_decode_ref``) over GQA groups, masks,
+    windows, softcaps, ragged lengths and both dtypes; the decode kernel's
+    split-count invariance and its empty splits; both kernels in fp32 at
+    the main path's shapes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.decode_kernel import (
+        NEG_INF, flash_decode, flash_decode_partials_cuda, flash_decode_ref,
+        split_length)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    names = ("flash_attention", "flash_decode")
+    worst = {n: {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+             for n in names}
+    cases = {n: 0 for n in names}
+
+    def record(name, what, out, ref):
+        err, share, rtol, atol = tol_share(out, ref)
+        log(f"{name} {what}: max_abs_err={err:.3g} rtol={rtol:.3g} "
+            f"atol={atol:.3g} tolerance_used={share:.3g}")
+        if not share <= 1.0:  # NaN fails too
+            raise AssertionError(f"{name} {what}: max_abs_err={err} is "
+                                 f"{share:.3g}× the tolerance")
+        dt = str(out.dtype)[6:]
+        w = worst[name][dt]
+        worst[name][dt] = (max(w[0], err), max(w[1], share))
+        cases[name] += 1
+
+    shapes = (  # (B, Hq, Hkv, Sq, Skv, D): groups 1, 4, 8; ragged; Sq ≠ Skv
+        (1, 4, 4, 128, 128, 64), (2, 8, 2, 200, 200, 64),
+        (1, 8, 1, 130, 130, 128), (2, 32, 4, 256, 256, 64),
+        (2, 4, 4, 77, 77, 16), (1, 4, 2, 64, 96, 32))
+    modes = ((True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0),
+             (True, 0, 30.0), (True, 64, 30.0), (False, 64, 0.0))
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, Sq, Skv, D in shapes:
+            q = rand(B, Hq, Sq, D, dtype=dtype)
+            k, v = (rand(B, Hkv, Skv, D, dtype=dtype) for _ in range(2))
+            for causal, window, cap in modes:
+                if causal and Sq != Skv:
+                    continue
+                kw = dict(causal=causal, window=window, softcap=cap)
+                out = flash_attention_cuda(q, k, v, **kw)
+                ref = attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                record("flash_attention", f"{dtype} q={tuple(q.shape)} "
+                       f"kv={tuple(k.shape)} {kw}", out, ref)
+
+    dshapes = (  # (B, Hq, Hkv, S, D): the serve shape, GQA, MQA
+        (8, 32, 4, 576, 64), (2, 8, 2, 256, 64), (2, 4, 1, 128, 128),
+        (1, 8, 1, 300, 16), (1, 2, 2, 128, 64))
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, S, D in dshapes:
+            q = rand(B, Hq, 1, D, dtype=dtype)
+            k, v = (rand(B, Hkv, S, D, dtype=dtype) for _ in range(2))
+            for splits in (None, 1, 8):
+                split = split_length(B, Hkv, S, splits, dev)
+                # the whole cache, inside a split, on a split boundary, 1
+                lens = sorted({S, min(S, split + split // 2),
+                               min(S, 2 * split), 1})
+                for kv_len in lens:
+                    for cap in (0.0, 30.0):
+                        kw = dict(kv_len=kv_len, softcap=cap)
+                        out = flash_decode(q, k, v, kv_splits=splits, **kw)
+                        ref = flash_decode_ref(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                        record("flash_decode", f"{dtype} q={tuple(q.shape)} "
+                               f"kv={tuple(k.shape)} splits={splits} {kw}",
+                               out, ref)
+
+    # the main path's shapes in fp32: TinyLlama's prefill of 8 × 2048 tokens
+    # (32 query / 4 KV heads of 64, causal) and a 32768-slot decode cache
+    f32 = torch.float32
+    q = rand(8, 32, 2048, 64, dtype=f32)
+    k, v = (rand(8, 4, 2048, 64, dtype=f32) for _ in range(2))
+    out = flash_attention_cuda(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    record("flash_attention", f"{f32} q={tuple(q.shape)} kv={tuple(k.shape)} "
+           "causal", out, ref)
+    del q, k, v, out, ref
+    q = rand(8, 32, 1, 64, dtype=f32)
+    k, v = (rand(8, 4, 32768, 64, dtype=f32) for _ in range(2))
+    out = flash_decode(q, k, v)
+    ref = flash_decode_ref(q, k, v)
+    torch.cuda.synchronize()
+    record("flash_decode", f"{f32} q={tuple(q.shape)} kv={tuple(k.shape)}",
+           out, ref)
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    # split-count invariance: the log-sum-exp merge is exact
+    q = rand(1, 8, 1, 64, dtype=torch.float32)
+    k, v = (rand(1, 2, 1024, 64, dtype=torch.float32) for _ in range(2))
+    outs = [flash_decode(q, k, v, kv_splits=s, kv_len=1000)
+            for s in (1, 4, 16, 64, None)]
+    spread = max(float((o - outs[0]).abs().max()) for o in outs[1:])
+    if not spread <= 2e-6:
+        raise AssertionError(f"flash_decode depends on the split count: "
+                             f"{spread}")
+    # splits wholly past kv_len read nothing: m = -1e30, l = 0, o = 0
+    m, l, o = flash_decode_partials_cuda(q, k, v, scale=0.125, kv_len=100,
+                                         split=64, softcap=0.0)
+    torch.cuda.synchronize()
+    if not (bool((m[:, :, 2:] == NEG_INF).all())
+            and bool((l[:, :, 2:] == 0).all())
+            and bool((o[:, :, 2:] == 0).all())
+            and bool((l[:, :, :2] > 0).all())):
+        raise AssertionError("flash_decode: empty splits are not empty")
+    emit({"phase": "attention_kernels_vs_plain", "cases": cases,
+          "tolerance": {"float32": {"rtol": ATTN_FP32_TOL,
+                                    "atol": ATTN_FP32_TOL},
+                        "bfloat16": {"rtol": BF16_RTOL,
+                                     "atol_of_mean_abs": BF16_ATOL_OF_MEAN}},
+          "max_abs_err": {n: {dt: e for dt, (e, _) in w.items()}
+                          for n, w in worst.items()},
+          "tolerance_used": {n: {dt: u for dt, (_, u) in w.items()}
+                             for n, w in worst.items()},
+          "split_invariance_max_diff": spread,
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
+# --------------------------------------------------------------------- #
+# phase 6: LM serving at full TinyLlama-1.1B width
+# --------------------------------------------------------------------- #
+def phase_lm(seed: int, log) -> dict:
+    """TinyLlama-1.1B at its published width, random weights from a seeded
+    generator on the card, through the port's entry points: (a) fp32
+    forward (flash_attention) against 256 decode steps (flash_decode);
+    (b) the serving loop, 8 requests × (512 + 64) tokens, bf16; (c)
+    serve_prefill on 8 × 2048 tokens, bf16.  Launch counts are set to 0
+    just before (b) and (c) and read just after."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    master = tfm.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    n_params = tfm.param_count(master)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config says "
+                             f"{cfg.param_count()}")
+    emit({"phase": "lm_init", "arch": LM_ARCH, "config": dataclasses.asdict(
+        cfg), "params": n_params, "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+
+    # (a) fp32: forward's logits at every position vs one decode step each
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    B, S = 2, 256
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+    t0 = time.perf_counter()
+    full, _ = tfm.forward(master, tokens, cfg32)
+    cache = tfm.init_cache(cfg32, B, S, dtype=torch.float32, device=dev)
+    steps = []
+    for t in range(S):
+        lg, cache = tfm.serve_decode(master, tokens[:, t:t + 1], t, cache,
+                                     cfg32)
+        steps.append(lg)
+    dec = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del cache, steps
+    if not (bool(full.isfinite().all()) and bool(dec.isfinite().all())):
+        raise AssertionError("fp32 prefill/decode logits are not finite")
+    diff = (dec - full).abs()
+    err = float(diff.max())
+    share = float((diff / (LM_ATOL + LM_RTOL * full.abs())).max())
+    # the greedy tokens must be equal; the forward's smallest margin
+    # between its top two logits says how near a tie came
+    differ = full.argmax(-1) != dec.argmax(-1)
+    top2 = full.topk(2, dim=-1).values
+    rec_a = {"phase": "lm_prefill_vs_decode_fp32", "requests": B,
+             "tokens": S, "max_abs_err": err, "rtol": LM_RTOL,
+             "atol": LM_ATOL, "tolerance_used": share,
+             "greedy_tokens_differ": int(differ.sum()),
+             "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min()),
+             "logit_abs_max": float(full.abs().max()), "seconds": secs}
+    emit(rec_a)
+    if not share <= 1.0 or bool(differ.any()):
+        raise AssertionError(f"fp32 prefill and decode disagree: {rec_a}")
+    del full, dec, diff, top2, differ
+
+    # (b) serving, bf16: 8 requests × (512-token prompt + 64 new tokens)
+    params = tfm.cast_params(master, cfg)
+    Bs, P, new = 8, 512, 64
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (Bs, P))).to(dev)
+    serve_loop(params, prompts[:, :8], cfg, 4)  # warm-up: builds, allocator
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res = serve_loop(params, prompts, cfg, new)
+    launches_b = dict(cuda_build.launches)
+    want = cfg.n_layers * res.decode_steps
+    toks = res.tokens
+    if toks.shape != (Bs, new) or not bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"serve: bad tokens {toks.shape}")
+    if launches_b.get("flash_decode", 0) != want \
+            or launches_b.get("flash_attention", 0) != 0:
+        raise AssertionError(f"serve launched {launches_b}; want "
+                             f"flash_decode = {want}, flash_attention = 0")
+    step_ms = sorted(1e3 * s for s in res.step_seconds)
+    emit({"phase": "lm_serve", "requests": Bs, "prompt_len": P,
+          "max_new": new, "decode_steps": res.decode_steps,
+          "prefill_seconds": res.prefill_seconds,
+          "prefill_ms_per_step": 1e3 * res.prefill_seconds / (P - 1),
+          "decode_ms_per_step": 1e3 * res.decode_seconds / new,
+          "decode_step_ms_p50": step_ms[len(step_ms) // 2],
+          "decode_step_ms_max": step_ms[-1],
+          "tokens_per_s": res.tokens_per_s,
+          "decode_tokens_per_s": res.decode_tokens_per_s,
+          "launches": launches_b})
+
+    # (c) prefill, bf16: serve_prefill on 8 × 2048 tokens
+    Bp, Sp = 8, 2048
+    ptoks = torch.from_numpy(rng.integers(0, cfg.vocab, (Bp, Sp))).to(dev)
+    tfm.serve_prefill(params, ptoks[:1, :256], cfg)  # warm-up
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    last = tfm.serve_prefill(params, ptoks, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches_c = dict(cuda_build.launches)
+    if launches_c.get("flash_attention", 0) != cfg.n_layers \
+            or launches_c.get("flash_decode", 0) != 0:
+        raise AssertionError(f"serve_prefill launched {launches_c}; want "
+                             f"flash_attention = {cfg.n_layers}, "
+                             "flash_decode = 0")
+    if last.shape != (Bp, cfg.vocab) or not bool(last.isfinite().all()):
+        raise AssertionError("serve_prefill: bad logits")
+    emit({"phase": "lm_prefill", "requests": Bp, "tokens": Sp,
+          "seconds": secs, "tokens_per_s": Bp * Sp / secs,
+          "launches": launches_c})
+    del master, params
+    return {"launches": {"flash_decode": launches_b.get("flash_decode", 0),
+                         "flash_attention":
+                             launches_c.get("flash_attention", 0)},
+            "cfg": cfg, "serve_shape": (Bs, P + new),
+            "prefill_shape": (Bp, Sp)}
+
+
+def attention_timing(lm: dict, seed: int, log) -> list:
+    """``flash_attention`` at the prefill shape and ``flash_decode`` at the
+    serve shape and at a 32768-slot cache, beside their bounds, their plain
+    versions and ``scaled_dot_product_attention`` (the yardstick: the port
+    never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.decode_kernel import (
+        flash_decode, flash_decode_ref)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cfg = lm["cfg"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    # flash_attention at (c): q (8, 32, 2048, 64), causal, GQA 8
+    B, S = lm["prefill_shape"]
+    q, k, v = rand(B, H, S, D), rand(B, Hk, S, D), rand(B, Hk, S, D)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), reps=10,
+                 warmup=2)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), reps=2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=10, warmup=2)
+    out = flash_attention_cuda(q, k, v, causal=True)
+    err, share, rtol, atol = tol_share(out,
+                                       attention_ref(q, k, v, causal=True))
+    lib_err = float((out.float() - F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True).float()).abs().max())
+    flops = 4 * B * H * S * S * D / 2  # causal: half the score matrix
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    ops_ms, bytes_ms = 1e3 * flops / BF16_OPS_PER_S, 1e3 * nbytes / \
+        HBM_BYTES_PER_S
+    log(f"flash_attention: flops={flops} bytes={nbytes} "
+        f"max_abs_err_vs_sdpa={lib_err:.3g}")
+    if not share <= 1.0:
+        raise AssertionError(f"flash_attention at the prefill shape: "
+                             f"{share}× the tolerance")
+    fa = {"name": "flash_attention", "route": "cuda",
+          "source": SOURCES["flash_attention"],
+          "replaces": REPLACES["flash_attention"],
+          "launches": lm["launches"]["flash_attention"],
+          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": max(ops_ms, bytes_ms),
+          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+          "library_ms": lib_ms, "rtol": rtol, "atol": atol,
+          "tolerance_used": share,
+          "shape": {"q": list(q.shape), "kv": list(k.shape),
+                    "causal": True},
+          "tflops": flops / (ms * 1e-3) / 1e12}
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+    def decode_case(batch, slots):
+        q = rand(batch, H, 1, D)
+        kc, vc = rand(batch, Hk, slots, D), rand(batch, Hk, slots, D)
+        kv_len = slots
+        ms = cuda_ms(lambda: flash_decode(q, kc, vc, kv_len=kv_len), reps=50,
+                     warmup=3)
+        device_ms = graph_ms(lambda: flash_decode(q, kc, vc, kv_len=kv_len))
+        plain_ms = cuda_ms(lambda: flash_decode_ref(q, kc, vc, kv_len=kv_len),
+                           reps=5)
+        ks, vs = kc[:, :, :kv_len], vc[:, :, :kv_len]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, ks, vs, enable_gqa=True), reps=50, warmup=3)
+        out = flash_decode(q, kc, vc, kv_len=kv_len)
+        err, share, rtol, atol = tol_share(
+            out, flash_decode_ref(q, kc, vc, kv_len=kv_len))
+        if not share <= 1.0:
+            raise AssertionError(f"flash_decode at {slots} slots: {share}× "
+                                 "the tolerance")
+        # K/V of the live slots read once, q read, out written, bf16
+        nbytes = 2 * (2 * batch * Hk * kv_len * D + 2 * q.numel())
+        flops = 4 * batch * H * kv_len * D
+        return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms,
+                "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                "ops_ms": 1e3 * flops / BF16_OPS_PER_S,
+                "max_abs_err": err, "rtol": rtol, "atol": atol,
+                "tolerance_used": share,
+                "shape": {"q": list(q.shape), "kv": list(kc.shape),
+                          "kv_len": kv_len},
+                "tb_per_s_device": nbytes / (device_ms * 1e-3) / 1e12}
+
+    serve = decode_case(*lm["serve_shape"])
+    long = decode_case(8, 32768)
+    fd = {"name": "flash_decode", "route": "cuda",
+          "source": SOURCES["flash_decode"],
+          "replaces": REPLACES["flash_decode"],
+          "launches": lm["launches"]["flash_decode"],
+          "max_abs_err": serve["max_abs_err"], "ms": serve["ms"],
+          "plain_ms": serve["plain_ms"],
+          "bound_ms": max(serve["bytes_ms"], serve["ops_ms"]),
+          "bound_by": ("bytes" if serve["bytes_ms"] >= serve["ops_ms"]
+                       else "operations"),
+          "library_ms": serve["library_ms"],
+          "rtol": serve["rtol"], "atol": serve["atol"],
+          "tolerance_used": serve["tolerance_used"],
+          "device_ms": serve["device_ms"], "shape": serve["shape"],
+          "tb_per_s_device": serve["tb_per_s_device"],
+          "long_cache": {**long, "bound_ms": max(long["bytes_ms"],
+                                                 long["ops_ms"])}}
+    return [fa, fd]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -656,8 +1116,13 @@ def main(argv=None) -> int:
 
     phase_kernels(SEED, log)
     phase_spmm_kernel(SEED, log)
+    phase_attention_kernels(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
     records = phase_timing(main_state, log)
+    del main_state
+    torch.cuda.empty_cache()
+    lm = phase_lm(SEED, log)
+    records += attention_timing(lm, SEED, log)
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,8 @@ SOURCES = {
     "fused_pull": "tocab_fused/csrc/fused_pull.cu",
     "fused_push": "tocab_fused/csrc/fused_push.cu",
     "tocab_spmm": "tocab_spmm/csrc/tocab_spmm.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_decode": "flash_attention/csrc/flash_decode.cu",
 }
 
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

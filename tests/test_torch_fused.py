@@ -249,7 +249,8 @@ def test_cuda_kernel_loader_is_lazy():
     import repro_torch.kernels.tocab_spmm.ops  # noqa: F401
 
     assert set(cuda_build.SOURCES) == {"fused_pull", "fused_push",
-                                       "tocab_spmm"}
+                                       "tocab_spmm", "flash_attention",
+                                       "flash_decode"}
     for name in cuda_build.SOURCES:
         src = cuda_build._source(name)
         assert src.is_file()

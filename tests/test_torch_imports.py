@@ -15,6 +15,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch, repro_torch.core, repro_torch.obs\n"
         "import repro_torch.kernels.tocab_fused.ops\n"
         "import repro_torch.kernels.tocab_spmm.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.flash_attention.decode_kernel\n"
+        "import repro_torch.configs, repro_torch.models.layers\n"
+        "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
