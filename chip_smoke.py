@@ -52,6 +52,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels timed at those shapes (and ``flash_decode`` at a 32768-slot
    cache) beside their bounds, plain versions and
    ``scaled_dot_product_attention``.
+7. ``embedding_bag`` against its plain version: d 16, 24, 33 (the scalar
+   path) and 64, sum and mean, weights and none, fp32 and bf16 tables,
+   int32 and int64 ids, a zero-weight bag, out-of-range ids beside NaN
+   guard rows; then the main path, the entry point on BERT4Rec's 1,000,002
+   × 64 item table with cloze-label bags at ``serve_p99`` (512 × 200) and
+   ``train_batch`` (65,536 × 200), launched exactly once per call, held
+   against the plain version, bit-identical on a second launch, and timed
+   beside its byte bound, the plain version and ``F.embedding_bag``.
+8. BERT4Rec serving at its published width (random weights from ``SEED``):
+   (a) the fp32 encoder of 8 users on the card vs on the CPU; (b)
+   ``score_loop`` at 512 users, top-10 of 10⁶ items, 20 reps, every id
+   checked tie-aware against fp32 scores, recall of the fp32 top-10
+   reported; (c) ``bert4rec_retrieve`` over 10⁶ candidates vs float64.  No
+   port kernel runs here: every launch count must stay 0.
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -103,6 +117,7 @@ REPLACES = {
     "tocab_spmm": "src/repro/kernels/tocab_spmm/kernel.py:81",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:97",
     "flash_decode": "src/repro/kernels/flash_attention/decode_kernel.py:65",
+    "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:60",
 }
 
 SOURCES = {
@@ -113,15 +128,18 @@ SOURCES = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "flash_decode":
         "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
+    "embedding_bag":
+        "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
 }
 
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the operation
 #: bound of attention at bf16
 BF16_OPS_PER_S = 989e12
 
-#: attention kernels vs their plain versions in fp32: the reference's own
-#: kernel tolerance (tests/test_kernels.py), rtol = atol = 2e-5
-ATTN_FP32_TOL = 2e-5
+#: attention and embedding-bag kernels vs their plain versions in fp32: the
+#: reference's own kernel tolerance (tests/test_kernels.py), rtol = atol =
+#: 2e-5
+FP32_KERNEL_TOL = 2e-5
 #: in bf16 both compute in fp32 and round the output to bf16 once, so they
 #: differ by one bf16 ulp where a rounding boundary falls between their
 #: fp32 results: rtol 2⁻⁷, one ulp at 1.0.  The absolute part scales with
@@ -138,6 +156,19 @@ LM_RTOL, LM_ATOL = 1e-3, 1e-4
 
 #: the LM phases: TinyLlama-1.1B at its published width (22 layers)
 LM_ARCH = "tinyllama-1.1b"
+
+#: BERT4Rec's fp32 encoder, card vs CPU: rtol = atol = 1e-4, the port's
+#: parity tolerance for fp32 models (fp32 sums in another order)
+B4_RTOL = 1e-4
+#: serving ids, tie-aware: the bf16 path's ids must have fp32 scores at
+#: least the fp32 k-th score minus 2⁻⁵ of the user's largest |fp32 score|
+#: (four to eight bf16 ulps of it).  The bf16 path rounds the hidden state,
+#: the table and the score to bf16, so a returned id's bf16 and fp32 scores
+#: differ by E (a few ulps) and the check needs 2E.
+SCORE_TOL_OF_MAX = 2.0 ** -5
+#: retrieval, fp32 scores vs a float64 recomputation of the same 64-term
+#: dot products (|score| < 1: fp32 errors ~1e-7)
+RETRIEVE_TOL = 1e-5
 
 
 def emit(record: dict):
@@ -687,14 +718,14 @@ def time_balanced_bins(main: dict, contrib):
 # --------------------------------------------------------------------- #
 def tol_share(out, ref):
     """Max |out - ref|, the worst entry's share of ``atol + rtol·|ref|``,
-    and that (rtol, atol): :data:`ATTN_FP32_TOL` for an fp32 ``out``,
+    and that (rtol, atol): :data:`FP32_KERNEL_TOL` for an fp32 ``out``,
     :data:`BF16_RTOL` and :data:`BF16_ATOL_OF_MEAN` of mean |ref| for bf16.
     All in fp32."""
     import torch
 
     ref = ref.float()
     if out.dtype == torch.float32:
-        rtol = atol = ATTN_FP32_TOL
+        rtol = atol = FP32_KERNEL_TOL
     else:
         rtol, atol = BF16_RTOL, BF16_ATOL_OF_MEAN * float(ref.abs().mean())
     diff = (out.float() - ref).abs()
@@ -822,8 +853,8 @@ def phase_attention_kernels(seed: int, log) -> dict:
             and bool((l[:, :, :2] > 0).all())):
         raise AssertionError("flash_decode: empty splits are not empty")
     emit({"phase": "attention_kernels_vs_plain", "cases": cases,
-          "tolerance": {"float32": {"rtol": ATTN_FP32_TOL,
-                                    "atol": ATTN_FP32_TOL},
+          "tolerance": {"float32": {"rtol": FP32_KERNEL_TOL,
+                                    "atol": FP32_KERNEL_TOL},
                         "bfloat16": {"rtol": BF16_RTOL,
                                      "atol_of_mean_abs": BF16_ATOL_OF_MEAN}},
           "max_abs_err": {n: {dt: e for dt, (e, _) in w.items()}
@@ -1075,6 +1106,345 @@ def attention_timing(lm: dict, seed: int, log) -> list:
     return [fa, fd]
 
 
+# --------------------------------------------------------------------- #
+# phase 7: embedding_bag at the BERT4Rec table size
+# --------------------------------------------------------------------- #
+def phase_embedding_bag(seed: int, log) -> list:
+    """The ``embedding_bag`` kernel against its plain version: small cases
+    over widths, modes, weights, table and id types, an all-zero-weight
+    bag and out-of-range ids (a NaN guard row on each side of the table:
+    reading one would show); then the main path — the entry point on the
+    BERT4Rec item table with cloze-label bags at ``serve_p99`` and
+    ``train_batch``, launch counts set to 0 just before and read just
+    after — its checks, repeat launches bit for bit, and each shape timed
+    beside its bound, its plain version and ``F.embedding_bag``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import make_cloze_batch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    cases = 0
+
+    def check(what, out, ref):
+        nonlocal cases
+        err, share, rtol, atol = tol_share(out, ref)
+        log(f"embedding_bag {what}: max_abs_err={err:.3g} rtol={rtol:.3g} "
+            f"atol={atol:.3g} tolerance_used={share:.3g}")
+        if not share <= 1.0:  # NaN fails too
+            raise AssertionError(f"embedding_bag {what}: max_abs_err={err} "
+                                 f"is {share:.3g}× the tolerance")
+        dt = str(out.dtype)[6:]
+        worst[dt] = (max(worst[dt][0], err), max(worst[dt][1], share))
+        cases += 1
+        return err, share
+
+    def launch(*args, **kw):
+        before = cuda_build.launches["embedding_bag"]
+        out = embedding_bag(*args, **kw)
+        if cuda_build.launches["embedding_bag"] != before + 1:
+            raise AssertionError("embedding_bag did not launch exactly once")
+        return out
+
+    V, B, L = 5000, 300, 17
+    for d in (16, 24, 33, 64):  # 33: the scalar path
+        for dtype in (torch.float32, torch.bfloat16):
+            guarded = torch.full((V + 2, d), float("nan"), device=dev,
+                                 dtype=dtype)
+            guarded[1:V + 1] = torch.from_numpy(
+                rng.standard_normal((V, d), dtype=np.float32)).to(dev, dtype)
+            table = guarded[1:V + 1]  # rows -1 and V are the NaN guards
+            ids = rng.integers(0, V, (B, L))
+            ids[0, :2], ids[1, 3], ids[2, 0] = (-1, V), V + 1000, -7
+            w = rng.random((B, L), dtype=np.float32)
+            w[5] = 0.0  # a bag of zero weight
+            wt = torch.from_numpy(w).to(dev)
+            for id_dtype in (torch.int32, torch.int64):
+                it = torch.from_numpy(ids).to(dev, id_dtype)
+                for mode in ("sum", "mean"):
+                    for weights in (wt, None):
+                        out = launch(table, it, weights, mode=mode)
+                        ref = embedding_bag_ref(table, it, weights, mode=mode)
+                        torch.cuda.synchronize()
+                        what = (f"d={d} {dtype} ids={id_dtype} {mode} "
+                                f"weights={weights is not None}")
+                        if out.dtype != dtype or out.shape != (B, d):
+                            raise AssertionError(f"{what}: {out.dtype} "
+                                                 f"{tuple(out.shape)}")
+                        if not bool(out.isfinite().all()):
+                            raise AssertionError(f"{what}: an out-of-range "
+                                                 "id's guard row was read")
+                        check(what, out, ref)
+                        if weights is not None and bool(out[5].any()):
+                            raise AssertionError(f"{what}: the zero-weight "
+                                                 "bag is not 0")
+                        if not torch.equal(out, launch(table, it, weights,
+                                                       mode=mode)):
+                            raise AssertionError(f"{what}: two launches "
+                                                 "differ")
+    small_cases = cases
+
+    # the main path: BERT4Rec's item table, bags of cloze labels
+    cfg = get_arch("bert4rec").make_model_cfg()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((cfg.table_size, cfg.d_model), generator=gen,
+                        device=dev) * 0.02  # as init_bert4rec scales it
+    shapes = {c.name: c.batch for c in get_arch("bert4rec").shapes
+              if c.name in ("serve_p99", "train_batch")}
+    bags = {}
+    for name, batch in shapes.items():
+        labels = make_cloze_batch(rng, batch, cfg.max_len, cfg.vocab,
+                                  cfg.mask_id, device=dev)["labels"]
+        w = torch.from_numpy(rng.random((batch, cfg.max_len),
+                                        dtype=np.float32)).to(dev)
+        bags[name] = (labels, w)
+    modes = ("sum", "mean")
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    outs, launches = {}, {}
+    for name, (ids, w) in bags.items():
+        before = cuda_build.launches["embedding_bag"]
+        for mode in modes:
+            outs[name, mode] = embedding_bag(table, ids, w, mode=mode)
+        launches[name] = cuda_build.launches["embedding_bag"] - before
+    torch.cuda.synchronize()
+    counted = dict(cuda_build.launches)
+    emit({"phase": "embedding_bag_main_path_launches", "launches": counted})
+    if counted != {"embedding_bag": len(bags) * len(modes)}:
+        raise AssertionError(f"the embedding_bag path launched {counted}; "
+                             f"want embedding_bag = {len(bags) * len(modes)}")
+
+    records, full = [], {}
+    for name, (ids, w) in bags.items():
+        batch = ids.shape[0]
+        errs = {}
+        for mode in modes:
+            ref = embedding_bag_ref(table, ids, w, mode=mode)
+            errs[mode] = check(f"{name} {mode}", outs[name, mode], ref)
+            del ref
+            if not torch.equal(outs[name, mode],
+                               embedding_bag(table, ids, w, mode=mode)):
+                raise AssertionError(f"embedding_bag {name} {mode}: two "
+                                     "launches differ")
+        ms = cuda_ms(lambda: embedding_bag_cuda(table, ids, w), reps=20,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: embedding_bag_ref(table, ids, w), reps=3)
+        ids64 = ids.long()  # F.embedding_bag's documented id type
+        lib_ms = cuda_ms(lambda: F.embedding_bag(
+            ids64, table, per_sample_weights=w, mode="sum"), reps=20, warmup=2)
+        lib_err = float((outs[name, "sum"] - F.embedding_bag(
+            ids64, table, per_sample_weights=w, mode="sum")).abs().max())
+        del ids64
+        # least bytes: each distinct row once, the ids and weights once, the
+        # output once; 2 flops per gathered element
+        unique_rows = int(torch.unique(ids).numel())
+        d = cfg.d_model
+        nbytes = unique_rows * d * 4 + ids.numel() * (4 + 4) + batch * d * 4
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2 * ids.numel() * d / FP32_OPS_PER_S
+        err, share = errs["sum"]
+        log(f"embedding_bag {name}: bytes={nbytes} unique_rows={unique_rows}"
+            f" max_abs_err_vs_library={lib_err:.3g}")
+        full[name] = {"bags": batch, "bag_len": cfg.max_len,
+                      "unique_rows": unique_rows,
+                      "max_abs_err": {m: e for m, (e, _) in errs.items()},
+                      "tolerance_used": {m: u for m, (_, u) in errs.items()}}
+        records.append({
+            "name": "embedding_bag", "route": "cuda",
+            "source": SOURCES["embedding_bag"],
+            "replaces": REPLACES["embedding_bag"],
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "rtol": FP32_KERNEL_TOL,
+            "atol": FP32_KERNEL_TOL, "tolerance_used": share,
+            "shape": {"cell": name, "table": list(table.shape),
+                      "ids": list(ids.shape), "unique_rows": unique_rows},
+            "library_max_abs_err": lib_err,
+            "gathered_tb_per_s": ids.numel() * d * 4 / (ms * 1e-3) / 1e12})
+    del outs, bags, table
+    torch.cuda.empty_cache()
+    emit({"phase": "embedding_bag_vs_plain", "cases": cases,
+          "small_cases": small_cases, "full": full,
+          "tolerance": {"float32": {"rtol": FP32_KERNEL_TOL,
+                                    "atol": FP32_KERNEL_TOL},
+                        "bfloat16": {"rtol": BF16_RTOL,
+                                     "atol_of_mean_abs": BF16_ATOL_OF_MEAN}},
+          "max_abs_err": {dt: e for dt, (e, _) in worst.items()},
+          "tolerance_used": {dt: u for dt, (_, u) in worst.items()},
+          "seconds": time.perf_counter() - t0})
+    return records
+
+
+# --------------------------------------------------------------------- #
+# phase 8: BERT4Rec serving at its published width
+# --------------------------------------------------------------------- #
+def phase_bert4rec(seed: int, log) -> dict:
+    """BERT4Rec at its published width (d 64, 2 blocks, 2 heads, L 200,
+    10⁶ items), random weights from a seeded generator on the card, through
+    the port's entry points: (a) the fp32 encoder on the card against the
+    same function on the CPU; (b) the serving loop (``score_loop``) at 512
+    users, top-10, 20 reps, its ids checked tie-aware against fp32 scores;
+    (c) ``bert4rec_retrieve`` over 10⁶ candidates against a float64
+    recomputation.  No port kernel runs on this path: the launch counts,
+    set to 0 before (a) and read after (c), must all be 0."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import make_cloze_batch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch.serve import score_loop
+    from repro_torch.models import bert4rec as b4
+
+    dev = torch.device("cuda")
+    cfg = get_arch("bert4rec").make_model_cfg()
+    t_phase = t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = b4.init_bert4rec(cfg, gen, dev)
+    torch.cuda.synchronize()
+    n_params = b4.param_count(params)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config says "
+                             f"{cfg.param_count()}")
+    emit({"phase": "bert4rec_init", "config": dataclasses.asdict(cfg),
+          "params": n_params, "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+
+    # (a) fp32 encoder, card vs CPU, 8 cloze users
+    items = make_cloze_batch(rng, 8, cfg.max_len, cfg.vocab, cfg.mask_id,
+                             device=dev)["items"]
+    t0 = time.perf_counter()
+    h = b4.bert4rec_encode(params, items, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    host = {k: ([{n: t.cpu() for n, t in b.items()} for b in v]
+                if k == "blocks" else v.cpu()) for k, v in params.items()}
+    h_cpu = b4.bert4rec_encode(host, items.cpu(), cfg)
+    del host
+    diff = (h.cpu() - h_cpu).abs()
+    share = float((diff / (B4_RTOL + B4_RTOL * h_cpu.abs())).max())
+    rec_a = {"phase": "bert4rec_encode_card_vs_cpu", "users": 8,
+             "seq_len": cfg.max_len, "max_abs_err": float(diff.max()),
+             "rtol": B4_RTOL, "atol": B4_RTOL, "tolerance_used": share,
+             "card_seconds": secs}
+    emit(rec_a)
+    if h.shape != (8, cfg.max_len, cfg.d_model) or not share <= 1.0:
+        raise AssertionError(f"fp32 encoder, card vs CPU: {rec_a}")
+    del h, h_cpu, diff
+
+    # (b) the serving loop: 512 users (serve_p99), top-10 over the table
+    users = make_cloze_batch(rng, 512, cfg.max_len, cfg.vocab, cfg.mask_id,
+                             device=dev)["items"]
+    k = 10
+    res = score_loop(params, users, cfg, top_k=k, reps=20)
+    user32 = b4.bert4rec_encode(params, users, cfg)[:, -1, :]
+    s32 = user32 @ params["item_emb"][: cfg.vocab].T  # fp32, no TF32
+    top32 = s32.topk(k, dim=-1)
+    tol = SCORE_TOL_OF_MAX * s32.abs().amax(dim=-1, keepdim=True)
+    got = s32.gather(1, res.ids)
+    margin = got - (top32.values[:, -1:] - tol)
+    distinct = all(len(set(r)) == k for r in res.ids.tolist())
+    hits = (res.ids[:, :, None] == top32.indices[:, None, :]).any(-1)
+    rep_ms = sorted(1e3 * s for s in res.rep_seconds)
+    rec_b = {"phase": "bert4rec_serve", "users": users.shape[0],
+             "items": cfg.vocab, "top_k": k, "reps": len(rep_ms),
+             "ms_per_batch": 1e3 * res.seconds_per_batch,
+             "ms_p50": rep_ms[len(rep_ms) // 2], "ms_max": rep_ms[-1],
+             "users_per_s": res.users_per_s,
+             "recall_of_fp32_top10": float(hits.float().mean()),
+             "score_tol_of_max": SCORE_TOL_OF_MAX,
+             "score_tol_range": [float(tol.min()), float(tol.max())],
+             "min_margin_over_tol": float(margin.min()),
+             "bf16_score_err_max": float((res.scores - got).abs().max()),
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(rec_b)
+    if res.ids.shape != (512, k) or not distinct \
+            or not bool((margin >= 0).all()) \
+            or not bool(res.scores.isfinite().all()):
+        raise AssertionError(f"serving ids fail the tie-aware check: {rec_b}")
+    del s32, top32, got, margin, hits, user32
+    emit({"phase": "bert4rec_serve_breakdown",
+          "ms": serve_breakdown(params, users, cfg, k)})
+
+    # (c) retrieval: 1 user against 10⁶ candidates (retrieval_cand), top-5
+    cell = {c.name: c for c in get_arch("bert4rec").shapes}["retrieval_cand"]
+    cands = torch.from_numpy(rng.permutation(cfg.vocab)[:cell.n_candidates]
+                             .astype(np.int32)).to(dev)
+    one = users[:1]
+    b4.bert4rec_retrieve(params, one, cands, cfg, top_k=5)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = b4.bert4rec_retrieve(params, one, cands, cfg, top_k=5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    user = b4.bert4rec_encode(params, one, cfg)[0, -1].double()
+    ref = params["item_emb"][cands.long()].double() @ user
+    by_item = torch.full((cfg.table_size,), float("-inf"), device=dev,
+                         dtype=torch.float64)
+    by_item[cands.long()] = ref
+    rv = ref.topk(5).values
+    err = float((vals.double() - rv).abs().max())
+    ok_ids = bool((by_item[ids.long()] >= rv[-1] - RETRIEVE_TOL).all()) \
+        and len(set(ids.tolist())) == 5
+    rec_c = {"phase": "bert4rec_retrieve", "candidates": cands.numel(),
+             "top_k": 5, "seconds": secs, "max_abs_err_vs_float64": err,
+             "atol": RETRIEVE_TOL}
+    emit(rec_c)
+    if not (err <= RETRIEVE_TOL and ok_ids):
+        raise AssertionError(f"retrieval disagrees with float64: {rec_c}")
+    torch.cuda.synchronize()
+    launches = {name: cuda_build.launches.get(name, 0)
+                for name in cuda_build.SOURCES}
+    emit({"phase": "bert4rec_launches", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        raise AssertionError(f"the BERT4Rec path launched {launches}; it "
+                             "runs no port kernel")
+    del params, users, cands, by_item, ref
+    torch.cuda.empty_cache()
+    return rec_b
+
+
+def serve_breakdown(params: dict, users, cfg, k: int) -> dict:
+    """Device ms (CUDA events) of each step of one ``bert4rec_score`` call,
+    run step by step as the function runs them."""
+    import torch
+
+    from repro_torch.models import bert4rec as b4
+
+    bf16 = torch.bfloat16
+    p = b4.cast_params(params, bf16)
+    user = b4.bert4rec_encode(p, users, cfg, dtype=bf16)[:, -1, :]
+    table = p["item_emb"][: cfg.vocab]
+    scores = user @ table.T
+    scores32 = scores.float()
+    return {
+        "cast_params_bf16": cuda_ms(lambda: b4.cast_params(params, bf16),
+                                    reps=5),
+        "encode_bf16": cuda_ms(lambda: b4.bert4rec_encode(
+            p, users, cfg, dtype=bf16), reps=5),
+        "scores_matmul_bf16": cuda_ms(lambda: user @ table.T, reps=5),
+        "scores_to_fp32": cuda_ms(lambda: scores.float(), reps=5),
+        "topk": cuda_ms(lambda: torch.topk(scores32, k, dim=-1), reps=5),
+        "whole_call": cuda_ms(lambda: b4.bert4rec_score(params, users, cfg,
+                                                        top_k=k), reps=5)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -1099,6 +1469,9 @@ def main(argv=None) -> int:
             with open(args.log, "a") as f:
                 f.write(msg + "\n")
 
+    # fp32 matmuls at full precision on every check path (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     emit({"phase": "env", "card": card, "torch": torch.__version__,
@@ -1123,6 +1496,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm = phase_lm(SEED, log)
     records += attention_timing(lm, SEED, log)
+    records += phase_embedding_bag(SEED, log)
+    phase_bert4rec(SEED, log)
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

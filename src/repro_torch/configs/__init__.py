@@ -1,16 +1,18 @@
 """Architecture registry of the port: ``get_arch(id)``.
 
 The five LM architectures (granite-moe-3b-a800m, mixtral-8x22b,
-tinyllama-1.1b, gemma-7b, gemma2-27b) are here.  The GNN and recsys
-architectures of the reference come with their slices: asking for one
-raises ``NotImplementedError`` naming it.
+tinyllama-1.1b, gemma-7b, gemma2-27b) and the recsys one (bert4rec) are
+here.  The GNN architectures of the reference come with their slice:
+asking for one raises ``NotImplementedError`` naming it.
 """
-from .base import LM_SHAPES, ArchSpec, ShapeCell
+from .base import LM_SHAPES, RECSYS_SHAPES, ArchSpec, ShapeCell
 from .lm_archs import LM_ARCHS
+from .recsys_archs import RECSYS_ARCHS
 
-__all__ = ["ARCHS", "ArchSpec", "ShapeCell", "LM_SHAPES", "get_arch"]
+__all__ = ["ARCHS", "ArchSpec", "ShapeCell", "LM_SHAPES", "RECSYS_SHAPES",
+           "get_arch"]
 
-ARCHS: dict = dict(LM_ARCHS)
+ARCHS: dict = {**LM_ARCHS, **RECSYS_ARCHS}
 
 #: the reference's other architectures → the ROADMAP slice that ports them
 _LATER = {
@@ -18,7 +20,6 @@ _LATER = {
     "gin-tu": "A10 (GNN training)",
     "dimenet": "A10 (GNN training)",
     "graphsage-reddit": "A10 (GNN training)",
-    "bert4rec": "A11 (the recsys model, with the embedding_bag kernel B6)",
 }
 
 

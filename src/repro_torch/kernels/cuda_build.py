@@ -26,8 +26,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "build", "load", "check_launch", "check_tensor",
-           "launches", "reset_launches"]
+__all__ = ["SOURCES", "BACKENDS", "build", "load", "check_launch",
+           "check_tensor", "pick_backend", "launches", "reset_launches"]
 
 _KERNELS = Path(__file__).resolve().parent
 
@@ -38,7 +38,12 @@ SOURCES = {
     "tocab_spmm": "tocab_spmm/csrc/tocab_spmm.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_decode": "flash_attention/csrc/flash_decode.cu",
+    "embedding_bag": "embedding_bag/csrc/embedding_bag.cu",
 }
+
+#: what a kernel family's ``backend=`` takes: the hand-written kernel, or
+#: its plain PyTorch version
+BACKENDS = ("cuda", "torch")
 
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -144,3 +149,21 @@ def check_tensor(t: torch.Tensor, what: str, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def pick_backend(t: torch.Tensor, backend: Optional[str]) -> str:
+    """``backend``, or by device when it is None: ``"cuda"`` for a tensor on
+    the card, ``"torch"`` otherwise.  Raises for ``"cuda"`` on a CPU tensor,
+    for the reference's ``"pallas"`` (naming ``"cuda"``) and for any name
+    but those two."""
+    if backend == "pallas":
+        raise ValueError("backend='pallas' is the TPU kernel; the port's "
+                         "hand-written kernel is backend='cuda'")
+    if backend is None:
+        backend = "cuda" if t.is_cuda else "torch"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend == "cuda" and not t.is_cuda:
+        raise ValueError("backend='cuda' needs tensors on the card")
+    return backend

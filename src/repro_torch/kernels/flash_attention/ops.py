@@ -15,29 +15,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.cuda_build import BACKENDS, pick_backend
+
 from .kernel import flash_attention_cuda
 from .ref import attention_ref
 
 __all__ = ["attention", "pick_backend", "BACKENDS"]
 
-BACKENDS = ("cuda", "torch")
-
-
-def pick_backend(t: torch.Tensor, backend: Optional[str]) -> str:
-    """``backend``, or by device when it is None: ``"cuda"`` for a tensor on
-    the card, ``"torch"`` otherwise.  Raises for ``"cuda"`` on a CPU tensor
-    and for any name but those two."""
-    if backend == "pallas":
-        raise ValueError("backend='pallas' is the TPU kernel; the port's "
-                         "hand-written kernel is backend='cuda'")
-    if backend is None:
-        backend = "cuda" if t.is_cuda else "torch"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown attention backend {backend!r}; expected "
-                         f"one of {BACKENDS}")
-    if backend == "cuda" and not t.is_cuda:
-        raise ValueError("backend='cuda' needs tensors on the card")
-    return backend
 
 
 def attention(

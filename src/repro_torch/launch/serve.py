@@ -1,21 +1,30 @@
 """Serving launcher of the port: a batched-request LM loop (prefill, then
-greedy decode with a KV cache) on the card.
+greedy decode with a KV cache) and the recsys scoring loop, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         [--full] [--requests 8] [--prompt-len 16] [--max-new 16] \
         [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec \
+        [--full] [--requests 8] [--device cuda]
 
-The default is the arch's smoke config, as in the reference's launcher;
-``--full`` runs the published config (random weights from a seed: the repo
-holds no checkpoint).  :func:`serve_loop` is the loop itself, the same as
-the reference's: the prompt is prefilled by decode steps over its tokens,
-then each request decodes greedily; it returns the tokens and the timings
-and records the reference's ``serve.*`` metrics and ``serve.prefill`` /
-``serve.decode`` spans.  Every step's attention runs on the
-``flash_decode`` kernel on the card.
+The default is the arch's smoke config, as in the reference's launcher
+(for bert4rec with ``vocab=5000``, as there); ``--full`` runs the published
+config (random weights from a seed: the repo holds no checkpoint).
+
+* :func:`serve_loop` is the LM loop itself, the same as the reference's:
+  the prompt is prefilled by decode steps over its tokens, then each
+  request decodes greedily; it returns the tokens and the timings and
+  records the reference's ``serve.*`` metrics and ``serve.prefill`` /
+  ``serve.decode`` spans.  Every step's attention runs on the
+  ``flash_decode`` kernel on the card.
+* :func:`score_loop` is the recsys loop: ``bert4rec_score`` (top-10 over
+  the whole item table) on one batch of users, timed over ``reps`` calls,
+  recording the reference's ``serve.score`` span,
+  ``serve.score_seconds`` histogram and ``serve.users_per_s`` gauge.  No
+  kernel of the port runs on it: scores, top-k and gathers are torch ops.
 
 Not ported: the reference's retry / chaos wrapper around each batch step
-(resilience, ROADMAP A6) and the recsys family (``serve_recsys``).
+(resilience, ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ from repro_torch.configs import get_arch
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import registry as _obs
 
-__all__ = ["ServeResult", "serve_loop", "serve_lm", "serve_recsys", "main"]
+__all__ = ["ServeResult", "serve_loop", "serve_lm", "ScoreResult",
+           "score_loop", "serve_recsys", "main"]
 
 
 @dataclasses.dataclass
@@ -134,10 +144,71 @@ def serve_lm(spec, args) -> ServeResult:
     return res
 
 
-def serve_recsys(spec, args):
-    raise NotImplementedError(
-        f"{spec.arch_id}: recsys serving is not ported yet (ROADMAP A11, "
-        "the recsys model with the embedding_bag kernel B6)")
+@dataclasses.dataclass
+class ScoreResult:
+    scores: torch.Tensor  # (B, top_k) fp32, of the last rep
+    ids: torch.Tensor  # (B, top_k) item ids, of the last rep
+    rep_seconds: List[float]  # per scored batch
+
+    @property
+    def seconds_per_batch(self) -> float:
+        return sum(self.rep_seconds) / len(self.rep_seconds)
+
+    @property
+    def users_per_s(self) -> float:
+        return self.scores.shape[0] / max(self.seconds_per_batch, 1e-9)
+
+
+def score_loop(params: dict, items: torch.Tensor, cfg, top_k: int = 10,
+               reps: int = 20) -> ScoreResult:
+    """Score the users ``items`` (B, L) int on their device against every
+    item, ``reps`` times after one untimed call, each rep waited for: the
+    reference's ``serve_recsys`` loop."""
+    from repro_torch.models.bert4rec import bert4rec_score
+
+    if reps < 1:
+        raise ValueError("need one rep at least")
+    vals, ids = bert4rec_score(params, items, cfg, top_k=top_k)
+    obs_trace.synchronize(vals)
+    hist = _obs.histogram("serve.score_seconds",
+                          "recsys catalogue-scoring walltime per batch")
+    reps_s = []
+    with obs_trace.span("serve.score", requests=items.shape[0],
+                        reps=reps) as sp:
+        for _ in range(reps):
+            tr = time.perf_counter()
+            vals, ids = bert4rec_score(params, items, cfg, top_k=top_k)
+            obs_trace.synchronize(vals)
+            reps_s.append(time.perf_counter() - tr)
+            hist.observe(reps_s[-1])
+        sp.block(vals)
+    result = ScoreResult(scores=vals, ids=ids, rep_seconds=reps_s)
+    _obs.gauge("serve.users_per_s", "recsys scoring throughput").set(
+        result.users_per_s)
+    return result
+
+
+def serve_recsys(spec, args) -> ScoreResult:
+    """The reference's ``serve_recsys`` on the port: random weights from
+    seed 0 on ``args.device``, ``args.requests`` users of random items from
+    numpy's ``default_rng(0)``, top-10 over the table, 20 reps."""
+    from repro_torch.models.bert4rec import init_bert4rec
+
+    cfg = (spec.make_model_cfg() if args.full
+           else dataclasses.replace(spec.make_smoke_cfg(), vocab=5000))
+    device = torch.device(args.device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_bert4rec(cfg, gen, device)
+    rng = np.random.default_rng(0)
+    items = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (args.requests, cfg.max_len)).astype(np.int32)
+    ).to(device)
+    res = score_loop(params, items, cfg, top_k=10, reps=20)
+    print(f"{cfg.name} on {device}: scored {args.requests} users × "
+          f"{cfg.vocab} items → top-10 in "
+          f"{1e3 * res.seconds_per_batch:.1f} ms/batch "
+          f"({res.users_per_s:.0f} users/s)")
+    return res
 
 
 def main(argv: Optional[list] = None):

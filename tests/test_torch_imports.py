@@ -19,6 +19,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels.flash_attention.decode_kernel\n"
         "import repro_torch.configs, repro_torch.models.layers\n"
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.embedding_bag.ops\n"
+        "import repro_torch.data.recsys, repro_torch.models.bert4rec\n"
+        "import repro_torch.configs.recsys_archs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

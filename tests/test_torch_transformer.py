@@ -326,8 +326,7 @@ def test_moe_and_later_families_raise():
         tfm.init_params(pc, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         tfm.forward({}, torch.zeros(1, 2, dtype=torch.long), pc)
-    for arch in ("gat-cora", "bert4rec"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_arch(arch)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_arch("gat-cora")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
