@@ -21,12 +21,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. The attention kernels against their plain versions:
    ``flash_attention`` over GQA groups 1, 4 and 8, causal and
    bidirectional, window 0 and 64, softcap 0 and 30, ragged lengths and
-   Sq ≠ Skv, fp32 and bf16; ``flash_decode`` at kv_len = S, inside a
-   split, on a split boundary and 1, splits auto / 1 / 8, softcap, MQA;
-   its split-count invariance and its empty splits; both in fp32 at the
-   main path's shapes (the 8 × 2048 prefill, a 32768-slot cache).  fp32 at
-   rtol = atol = 2e-5, bf16 at one bf16 ulp relative plus two of the mean
-   |entry|.
+   Sq ≠ Skv, fp32 (the FMA kernel) and bf16 (head dims 64, 128 and 256 on
+   the tensor-core kernel, each launch counted there; 16 and 32 on the FMA
+   kernel); ``flash_decode`` at kv_len = S, inside a split, on a split
+   boundary and 1, splits auto / 1 / 8, softcap, MQA, one launch a call;
+   its split-count invariance, its empty splits, and bit-identical repeats
+   at the serve shape and a 32768-slot cache; ``flash_attention`` at the
+   8 × 2048 prefill in fp32 (FMA) and bf16 (tensor cores), ``flash_decode``
+   in fp32 at a 32768-slot cache.  fp32 at rtol = atol = 2e-5, bf16 at one
+   bf16 ulp relative plus two of the mean |entry|.
 4. Main path: a Graph500 Kronecker graph (``rmat_graph(24, 16, seed=1,
    weights=True)``: 16.8 M vertices, ranks larger than the 50 MB L2) →
    ``build_blocked`` pull and push on the card, with per-graph
@@ -48,10 +51,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving loop, 8 requests × (512-token prompt + 64 new tokens), bf16,
    with ``flash_decode`` launched exactly 22 times per decode step and
    ``flash_attention`` never; (c) ``serve_prefill`` on 8 × 2048 tokens,
-   bf16, with ``flash_attention`` launched exactly 22 times.  Then both
-   kernels timed at those shapes (and ``flash_decode`` at a 32768-slot
-   cache) beside their bounds, plain versions and
-   ``scaled_dot_product_attention``.
+   bf16, with ``flash_attention`` launched exactly 22 times, all on the
+   tensor-core kernel.  Then both kernels timed at those shapes (and
+   ``flash_decode`` at a 32768-slot cache, device time under CUDA-graph
+   replay at both) beside their bounds, plain versions and
+   ``scaled_dot_product_attention``; ``flash_attention`` also beside the
+   FMA kernel's bf16 time at the prefill shape (``previous_ms``).
 7. ``embedding_bag`` against its plain version: d 16, 24, 33 (the scalar
    path) and 64, sum and mean, weights and none, fp32 and bf16 tables,
    int32 and int64 ids, a zero-weight bag, out-of-range ids beside NaN
@@ -124,7 +129,9 @@ SOURCES = {
     "fused_pull": "src/repro_torch/kernels/tocab_fused/csrc/fused_pull.cu",
     "fused_push": "src/repro_torch/kernels/tocab_fused/csrc/fused_push.cu",
     "tocab_spmm": "src/repro_torch/kernels/tocab_spmm/csrc/tocab_spmm.cu",
-    "flash_attention":
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_wgmma.cu",
+    "flash_attention_fma":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "flash_decode":
         "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
@@ -140,12 +147,18 @@ BF16_OPS_PER_S = 989e12
 #: reference's own kernel tolerance (tests/test_kernels.py), rtol = atol =
 #: 2e-5
 FP32_KERNEL_TOL = 2e-5
-#: in bf16 both compute in fp32 and round the output to bf16 once, so they
-#: differ by one bf16 ulp where a rounding boundary falls between their
-#: fp32 results: rtol 2⁻⁷, one ulp at 1.0.  The absolute part scales with
-#: the data, as SUM_ATOL does: two such ulps of the mean |entry|.  Both are
-#: tighter than the reference's bf16 2e-2, a fixed atol that exceeds the
-#: typical entry of a 32768-slot decode (~0.009).
+#: in bf16 the plain version computes in fp32 and rounds the output to bf16
+#: once.  The kernels hold scores, sums and accumulators in fp32 too; the
+#: tensor-core ones (flash_attention's bf16 route, flash_decode's bf16 one)
+#: must feed P to the product as bf16, so they split it, P = P_hi + P_lo,
+#: and add both products: their P is exact to 2⁻¹⁶, and their fp32 output
+#: differs from the plain version's by far less than a bf16 ulp.  The two
+#: outputs then differ by one bf16 ulp where a rounding boundary falls
+#: between their fp32 results: rtol 2⁻⁷, one ulp at 1.0.
+#: The absolute part scales with the data, as SUM_ATOL does: two such ulps
+#: of the mean |entry|.  Both are tighter than the reference's bf16 2e-2, a
+#: fixed atol that exceeds the typical entry of a 32768-slot decode
+#: (~0.009).
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL_OF_MEAN = 2.0 ** -6
 
@@ -744,7 +757,9 @@ def phase_attention_kernels(seed: int, log) -> dict:
     from repro_torch.kernels.flash_attention.decode_kernel import (
         NEG_INF, flash_decode, flash_decode_partials_cuda, flash_decode_ref,
         split_length)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention.kernel import (
+        attention_route, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     t0 = time.perf_counter()
@@ -775,21 +790,38 @@ def phase_attention_kernels(seed: int, log) -> dict:
         (1, 4, 4, 128, 128, 64), (2, 8, 2, 200, 200, 64),
         (1, 8, 1, 130, 130, 128), (2, 32, 4, 256, 256, 64),
         (2, 4, 4, 77, 77, 16), (1, 4, 2, 64, 96, 32))
+    # bf16 only: the tensor-core kernel's other head dims over the same
+    # groups, ragged lengths and Sq ≠ Skv
+    tc_shapes = (
+        (1, 4, 4, 77, 77, 128), (2, 8, 2, 200, 200, 128),
+        (1, 4, 2, 64, 96, 128), (1, 4, 4, 77, 77, 256),
+        (1, 8, 2, 130, 130, 256), (1, 8, 1, 200, 200, 256),
+        (1, 4, 2, 64, 96, 256))
     modes = ((True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0),
              (True, 0, 30.0), (True, 64, 30.0), (False, 64, 0.0))
+    on_tc = 0  # bf16 cases the tensor-core kernel took
     for dtype in (torch.float32, torch.bfloat16):
-        for B, Hq, Hkv, Sq, Skv, D in shapes:
+        for B, Hq, Hkv, Sq, Skv, D in shapes + (
+                tc_shapes if dtype == torch.bfloat16 else ()):
             q = rand(B, Hq, Sq, D, dtype=dtype)
             k, v = (rand(B, Hkv, Skv, D, dtype=dtype) for _ in range(2))
+            route = attention_route(dtype, D)
             for causal, window, cap in modes:
                 if causal and Sq != Skv:
                     continue
                 kw = dict(causal=causal, window=window, softcap=cap)
+                n_tc = cuda_build.launches["flash_attention_wgmma"]
                 out = flash_attention_cuda(q, k, v, **kw)
                 ref = attention_ref(q, k, v, **kw)
                 torch.cuda.synchronize()
+                took = cuda_build.launches["flash_attention_wgmma"] - n_tc
+                if took != (route == "wgmma"):
+                    raise AssertionError(f"flash_attention {dtype} D={D}: "
+                                         f"route {route}, {took} tensor-"
+                                         "core launches")
+                on_tc += took
                 record("flash_attention", f"{dtype} q={tuple(q.shape)} "
-                       f"kv={tuple(k.shape)} {kw}", out, ref)
+                       f"kv={tuple(k.shape)} {kw} {route}", out, ref)
 
     dshapes = (  # (B, Hq, Hkv, S, D): the serve shape, GQA, MQA
         (8, 32, 4, 576, 64), (2, 8, 2, 256, 64), (2, 4, 1, 128, 128),
@@ -806,7 +838,11 @@ def phase_attention_kernels(seed: int, log) -> dict:
                 for kv_len in lens:
                     for cap in (0.0, 30.0):
                         kw = dict(kv_len=kv_len, softcap=cap)
+                        n0 = cuda_build.launches["flash_decode"]
                         out = flash_decode(q, k, v, kv_splits=splits, **kw)
+                        if cuda_build.launches["flash_decode"] != n0 + 1:
+                            raise AssertionError("flash_decode: not one "
+                                                 "launch a call")
                         ref = flash_decode_ref(q, k, v, **kw)
                         torch.cuda.synchronize()
                         record("flash_decode", f"{dtype} q={tuple(q.shape)} "
@@ -822,7 +858,22 @@ def phase_attention_kernels(seed: int, log) -> dict:
     ref = attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
     record("flash_attention", f"{f32} q={tuple(q.shape)} kv={tuple(k.shape)} "
-           "causal", out, ref)
+           "causal fma", out, ref)
+    del q, k, v, out, ref
+    # and in bf16 on the tensor cores, the LM's own prefill
+    bf16 = torch.bfloat16
+    q = rand(8, 32, 2048, 64, dtype=bf16)
+    k, v = (rand(8, 4, 2048, 64, dtype=bf16) for _ in range(2))
+    n_tc = cuda_build.launches["flash_attention_wgmma"]
+    out = flash_attention_cuda(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if cuda_build.launches["flash_attention_wgmma"] != n_tc + 1:
+        raise AssertionError("flash_attention: the bf16 prefill did not take "
+                             "the tensor-core kernel")
+    on_tc += 1
+    record("flash_attention", f"{bf16} q={tuple(q.shape)} kv={tuple(k.shape)} "
+           "causal wgmma", out, ref)
     del q, k, v, out, ref
     q = rand(8, 32, 1, 64, dtype=f32)
     k, v = (rand(8, 4, 32768, 64, dtype=f32) for _ in range(2))
@@ -832,6 +883,26 @@ def phase_attention_kernels(seed: int, log) -> dict:
     record("flash_decode", f"{f32} q={tuple(q.shape)} kv={tuple(k.shape)}",
            out, ref)
     del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    # one launch a call, the same bits on every call (the merge order is
+    # fixed and there are no float atomics): the serve shape, 32768 slots
+    repeats = {}
+    for slots in (576, 32768):
+        q = rand(8, 32, 1, 64, dtype=bf16)
+        k, v = (rand(8, 4, slots, 64, dtype=bf16) for _ in range(2))
+        n0 = cuda_build.launches["flash_decode"]
+        outs = [flash_decode(q, k, v) for _ in range(3)]
+        torch.cuda.synchronize()
+        if cuda_build.launches["flash_decode"] != n0 + 3:
+            raise AssertionError("flash_decode: not one launch a call")
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"flash_decode at {slots} slots: repeats "
+                                 "differ")
+        record("flash_decode", f"{bf16} q={tuple(q.shape)} "
+               f"kv={tuple(k.shape)}", outs[0], flash_decode_ref(q, k, v))
+        repeats[slots] = "bit-identical x3"
+        del q, k, v, outs
     torch.cuda.empty_cache()
 
     # split-count invariance: the log-sum-exp merge is exact
@@ -862,6 +933,8 @@ def phase_attention_kernels(seed: int, log) -> dict:
           "tolerance_used": {n: {dt: u for dt, (_, u) in w.items()}
                              for n, w in worst.items()},
           "split_invariance_max_diff": spread,
+          "flash_attention_tensor_core_cases": on_tc,
+          "flash_decode_repeats": repeats,
           "seconds": time.perf_counter() - t0})
     return worst
 
@@ -978,9 +1051,11 @@ def phase_lm(seed: int, log) -> dict:
     secs = time.perf_counter() - t0
     launches_c = dict(cuda_build.launches)
     if launches_c.get("flash_attention", 0) != cfg.n_layers \
+            or launches_c.get("flash_attention_wgmma", 0) != cfg.n_layers \
             or launches_c.get("flash_decode", 0) != 0:
         raise AssertionError(f"serve_prefill launched {launches_c}; want "
-                             f"flash_attention = {cfg.n_layers}, "
+                             f"flash_attention = {cfg.n_layers}, all on the "
+                             "tensor cores (flash_attention_wgmma), "
                              "flash_decode = 0")
     if last.shape != (Bp, cfg.vocab) or not bool(last.isfinite().all()):
         raise AssertionError("serve_prefill: bad logits")
@@ -990,7 +1065,9 @@ def phase_lm(seed: int, log) -> dict:
     del master, params
     return {"launches": {"flash_decode": launches_b.get("flash_decode", 0),
                          "flash_attention":
-                             launches_c.get("flash_attention", 0)},
+                             launches_c.get("flash_attention", 0),
+                         "flash_attention_wgmma":
+                             launches_c.get("flash_attention_wgmma", 0)},
             "cfg": cfg, "serve_shape": (Bs, P + new),
             "prefill_shape": (Bp, Sp)}
 
@@ -999,13 +1076,16 @@ def attention_timing(lm: dict, seed: int, log) -> list:
     """``flash_attention`` at the prefill shape and ``flash_decode`` at the
     serve shape and at a 32768-slot cache, beside their bounds, their plain
     versions and ``scaled_dot_product_attention`` (the yardstick: the port
-    never calls it)."""
+    never calls it); ``flash_attention`` also beside the FMA kernel at the
+    same bf16 shape (``previous_ms``: the kernel this route replaced)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention.decode_kernel import (
         flash_decode, flash_decode_ref)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_attention_fma_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     cfg = lm["cfg"]
@@ -1025,6 +1105,9 @@ def attention_timing(lm: dict, seed: int, log) -> list:
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), reps=2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=10, warmup=2)
+    previous_ms = cuda_ms(lambda: flash_attention_fma_cuda(q, k, v,
+                                                           causal=True),
+                          reps=3)
     out = flash_attention_cuda(q, k, v, causal=True)
     err, share, rtol, atol = tol_share(out,
                                        attention_ref(q, k, v, causal=True))
@@ -1043,14 +1126,17 @@ def attention_timing(lm: dict, seed: int, log) -> list:
           "source": SOURCES["flash_attention"],
           "replaces": REPLACES["flash_attention"],
           "launches": lm["launches"]["flash_attention"],
+          "launches_tensor_core": lm["launches"]["flash_attention_wgmma"],
           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
           "bound_ms": max(ops_ms, bytes_ms),
           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-          "library_ms": lib_ms, "rtol": rtol, "atol": atol,
-          "tolerance_used": share,
+          "library_ms": lib_ms, "previous_ms": previous_ms,
+          "previous_source": SOURCES["flash_attention_fma"],
+          "rtol": rtol, "atol": atol, "tolerance_used": share,
           "shape": {"q": list(q.shape), "kv": list(k.shape),
                     "causal": True},
-          "tflops": flops / (ms * 1e-3) / 1e12}
+          "tflops": flops / (ms * 1e-3) / 1e12,
+          "bound_share": max(ops_ms, bytes_ms) / ms}
     del q, k, v, out
     torch.cuda.empty_cache()
 
@@ -1061,11 +1147,18 @@ def attention_timing(lm: dict, seed: int, log) -> list:
         ms = cuda_ms(lambda: flash_decode(q, kc, vc, kv_len=kv_len), reps=50,
                      warmup=3)
         device_ms = graph_ms(lambda: flash_decode(q, kc, vc, kv_len=kv_len))
+        n0 = cuda_build.launches["flash_decode"]
+        flash_decode(q, kc, vc, kv_len=kv_len)
+        per_call = cuda_build.launches["flash_decode"] - n0
+        if per_call != 1:
+            raise AssertionError(f"flash_decode: {per_call} launches a call")
         plain_ms = cuda_ms(lambda: flash_decode_ref(q, kc, vc, kv_len=kv_len),
                            reps=5)
         ks, vs = kc[:, :, :kv_len], vc[:, :, :kv_len]
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, ks, vs, enable_gqa=True), reps=50, warmup=3)
+        lib_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, ks, vs, enable_gqa=True))
         out = flash_decode(q, kc, vc, kv_len=kv_len)
         err, share, rtol, atol = tol_share(
             out, flash_decode_ref(q, kc, vc, kv_len=kv_len))
@@ -1076,7 +1169,11 @@ def attention_timing(lm: dict, seed: int, log) -> list:
         nbytes = 2 * (2 * batch * Hk * kv_len * D + 2 * q.numel())
         flops = 4 * batch * H * kv_len * D
         return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms,
+                "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+                "launches_per_call": per_call,
+                "bound_share_device": max(1e3 * nbytes / HBM_BYTES_PER_S,
+                                          1e3 * flops / BF16_OPS_PER_S)
+                / device_ms,
                 "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
                 "ops_ms": 1e3 * flops / BF16_OPS_PER_S,
                 "max_abs_err": err, "rtol": rtol, "atol": atol,
@@ -1099,7 +1196,11 @@ def attention_timing(lm: dict, seed: int, log) -> list:
           "library_ms": serve["library_ms"],
           "rtol": serve["rtol"], "atol": serve["atol"],
           "tolerance_used": serve["tolerance_used"],
-          "device_ms": serve["device_ms"], "shape": serve["shape"],
+          "device_ms": serve["device_ms"],
+          "library_device_ms": serve["library_device_ms"],
+          "launches_per_call": serve["launches_per_call"],
+          "bound_share_device": serve["bound_share_device"],
+          "shape": serve["shape"],
           "tb_per_s_device": serve["tb_per_s_device"],
           "long_cache": {**long, "bound_ms": max(long["bytes_ms"],
                                                  long["ops_ms"])}}

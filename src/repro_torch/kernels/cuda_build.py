@@ -37,6 +37,7 @@ SOURCES = {
     "fused_push": "tocab_fused/csrc/fused_push.cu",
     "tocab_spmm": "tocab_spmm/csrc/tocab_spmm.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "flash_decode": "flash_attention/csrc/flash_decode.cu",
     "embedding_bag": "embedding_bag/csrc/embedding_bag.cu",
 }

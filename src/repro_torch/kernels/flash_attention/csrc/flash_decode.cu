@@ -1,336 +1,719 @@
 // Split-KV decode attention for NVIDIA Hopper (sm_90a), with a plain C
-// interface: one new query token per request against a KV cache, each
-// split of the cache reduced to partial (max, sum, unnormalised output).
+// interface: one new query token per request against a KV cache, in one
+// launch — each split of the cache reduced to partial (max, sum,
+// unnormalised output), and the splits merged by the last CTA of each KV
+// head.
 //
 // Replaces: src/repro/kernels/flash_attention/decode_kernel.py,
-// flash_decode_pallas / _decode_kernel.  The reference merges the
-// partials with a log-sum-exp combine in XLA, outside the Pallas kernel;
-// here a second, small kernel (merge_kernel) does it, launched by the same
-// C call on the same stream, so that a decode step costs one call instead
-// of a dozen torch ops.
+// flash_decode_pallas / _decode_kernel, and the log-sum-exp merge of the
+// splits that the reference leaves to XLA outside the Pallas kernel.
 //
-// Computes, for q (B, Hkv, G, D) fp32 (G = Hq/Hkv query rows per KV head),
-// k and v (B, Hkv, S, D), split si covering cache slots
-// [si*split, min((si+1)*split, kv_len, S)):
+// Computes, for q (B, Hkv, G, D) (G = Hq/Hkv query rows per KV head), k
+// and v (B, Hkv, S, D), all fp32 or all bf16, split si covering cache
+// slots [si*split, min((si+1)*split, kv_len, S)):
 //   s[g, j] = cap(scale * q[b, hk, g] . k[b, hk, j])
 //   m[g] = max_j s[g, j],  l[g] = sum_j exp(s[g, j] - m[g]),
 //   o[g] = sum_j exp(s[g, j] - m[g]) v[b, hk, j]
-// all fp32, with cap(x) = softcap * tanh(x / softcap) when softcap > 0.
-// Slots at or past kv_len are masked: they add exactly 0.  A split that
-// lies wholly at or past kv_len reads nothing and writes m = -1e30, l = 0,
-// o = 0 (the serve cache is allocated at the full horizon and is mostly
-// empty early on).  kv_len is a runtime argument: a new decode position
-// launches the same code.
+// all fp32, with cap(x) = softcap * tanh(x / softcap) when softcap > 0;
+// then out[g] = sum_si e^(m_si - M) o_si / max(sum_si e^(m_si - M) l_si,
+// 1e-30) with M = max_si m_si, in q's dtype.  Slots at or past kv_len add
+// exactly 0; a split with none below kv_len gives m = -1e30, l = 0, o = 0.
+// kv_len is a runtime argument: a new decode position launches the same
+// code.
 //
-// Design.  Grid (splits, Hkv, B); 128 threads a CTA.  The CTA loads its KV
-// head's G query rows once (pre-scaled, fp32, shared memory) and streams
-// its split of the cache in tiles of 64 slots through shared memory, with
-// 16-byte loads.  Scores: each thread takes one slot and half of the G rows,
-// reading its K row as 16-byte vectors; the G x 64 score tile goes through
-// shared memory, one warp per row does the online-softmax update, and each
-// thread then accumulates G*D/128 output entries (one column d, several
-// rows) over the tile's P.  The number of splits is the caller's
-// (decode_kernel.py picks it so that B*Hkv*splits fills the 132 SMs).
-// Each head dim is built twice, for G <= 8 and G <= 32, so that the
-// common small groups do not carry registers sized for 32 rows.
+// Design.  Grid (splits, Hkv x ceil(G / GM), B), 4 warps a CTA; each CTA
+// takes up to GM query rows of one KV head (a group above 8 is cut into
+// chunks of 8, each chunk reading the head's K/V; the package's models have
+// G <= 8).  Each warp streams its own slots of the split, 16-byte cp.async
+// copies into its own ring of stages in shared memory a few iterations
+// ahead of use, and keeps its own online-softmax state: the slot loop has
+// no CTA barrier.  Two paths:
+//   - bf16 cache, D >= 64 (the LM's): 16 slots a warp iteration on the
+//     tensor cores with mma.sync m16n8k16.  S = Q K^T has the CTA's query
+//     rows as rows 0-7 of the A operand (rows 8-15 zero) and K^T's
+//     fragments from ldmatrix; P V takes P from registers, P_hi = bf16(P)
+//     in rows 0-7 and P_lo = bf16(P - P_hi) in rows 8-15, so that the
+//     padding rows carry the low half for free and P is held to 2^-16;
+//     V's fragments from ldmatrix.trans.  q's rows come straight from
+//     memory in bf16 (no cast on the host); scale applies to the fp32 sum.
+//   - fp32 caches and D < 64: FP32 FMA.  LPR lanes share a slot's row,
+//     a warp step covers 32/LPR slots; scores are reduced over the row's
+//     lanes with shuffles; each group of lanes that shares a slot row keeps
+//     its own (m, l, o) per query row, merged over shuffles after the loop.
+// The CTA's warps merge once through shared memory, in a fixed order.  Each
+// CTA writes its split's partials; the last CTA of each (b, hk, chunk) to
+// finish — told by a __threadfence() and an atomic ticket in a small int32
+// workspace, which that CTA resets to 0 for the next launch — merges all
+// splits in split order and writes out.  No float atomics: a launch's
+// result does not depend on the CTAs' order, and repeats bit-identically.
+// With out null the kernel writes the partials only (every split of the
+// grid, empty ones included).
 //
 // Bound.  Bytes: the K/V read, 2*B*Hkv*kv_len*D*sizeof(T), over 3.35 TB/s;
-// the partials and q are ~1/(2*split/G) of that, and the FMAs (2*G per
-// slot and column) are far below the FP32 rate.  What the design does about
-// it: each K/V byte is read once, in coalesced 16-byte loads, by enough
-// CTAs (splits) to keep every SM streaming; empty splits read nothing.
+// the partials, q and out are ~G/split of that.  The operations (4*G*D per
+// slot) are far below the tensor-core rate; on the FP32 pipes (the scalar
+// path) they take about as long as the bytes at G = 8, which is why bf16
+// takes the tensor cores.  What the design does about the bytes: each live
+// K/V byte is read once (per chunk of 8 query rows), in coalesced 16-byte
+// copies, several iterations in flight per warp and no barrier in the loop,
+// by enough CTAs (decode_kernel.py plans the splits from the live length)
+// to keep every SM streaming; splits past kv_len are not launched.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;       // cache slots per step
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxGroup = 32;   // query rows per KV head
 constexpr float kNegInf = -1e30f;
+constexpr int kStages = 4;        // a warp's cp.async ring depth
+constexpr int kStageVecs = 128;   // 16-byte chunks a stage holds: K, V
 
 template <typename T>
 struct Vec;
 
 template <>
 struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  static constexpr int N = 4;  // elements per 16-byte load
+  __device__ __forceinline__ static void to_float(const uint4& x,
+                                                  float* out) {
+    out[0] = __uint_as_float(x.x);
+    out[1] = __uint_as_float(x.y);
+    out[2] = __uint_as_float(x.z);
+    out[3] = __uint_as_float(x.w);
   }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  __device__ __forceinline__ static void to_float(const uint4& x,
+                                                  float* out) {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
 };
 
-__host__ __device__ constexpr int smem_floats(int G, int D) {
-  // q [G][D], K [kTile][D+4], V [kTile][D], P [G][kTile], alpha/m/l [G]
-  return G * D + kTile * (D + 4) + kTile * D + G * kTile + 3 * G;
+// How a warp covers the cache: LPR lanes per slot row, VPL 16-byte loads
+// per lane per row, RPI slot rows per warp step, U steps per iteration.
+template <typename T, int D>
+struct Plan {
+  static constexpr int VEC = Vec<T>::N;
+  static constexpr int NV = D / VEC;  // 16-byte vectors per row
+  static constexpr int LPR = NV < 32 ? NV : 32;
+  static constexpr int VPL = NV / LPR;
+  static constexpr int RPI = 32 / LPR;
+  static constexpr int U = VPL >= 2 ? 1 : 2;
+  static constexpr int SPI = U * RPI;  // slots per warp iteration
+  static constexpr int EPL = VPL * VEC;  // columns a lane owns
+};
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(ok ? 16 : 0)
+      : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+// Where a CTA's split goes: the partials (m, l: (B, Hkv, splits, G); o:
+// (B, Hkv, splits, G, D)), the tickets, and which rows it holds.
+struct SplitArgs {
+  float* m_part;
+  float* l_part;
+  float* o_part;
+  unsigned int* tickets;
+  int G, g0, Gc;
+  int64_t bh;
+  int si, splits;
+};
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// GM: the most query rows per KV head this instantiation takes (8 or 32);
-// it sizes the per-thread score and output registers.
+// The end of both kernels, once each warp w has left its (m, l, o) of the
+// CTA's rows in shared memory (wm[w * GM + g], wl[...], wo[w * wstride +
+// g * D + d]) and the CTA has synchronised: merge the warps in order and
+// write the split's partials; then, unless out is null, the last CTA of
+// this (b, hk, chunk) to finish merges every split, in split order, and
+// writes out.  It learns that it is last from an atomic ticket, which it
+// resets to 0 for the next launch.
 template <typename T, int D, int GM>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, float* __restrict__ m_out,
-              float* __restrict__ l_out, float* __restrict__ o_out, int G,
-              int S, int kv_len, int split, float scale, float softcap) {
-  constexpr int KS = D + 4;  // row stride of K (16 B aligned)
-  constexpr int VEC = Vec<T>::N;
-  constexpr int NACC = (GM * D + kThreads - 1) / kThreads;
-  constexpr int NS = GM / (kThreads / kTile);  // score rows a thread
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [G][D], scaled
-  float* ks = qs + G * D;           // [kTile][KS]
-  float* vs = ks + kTile * KS;      // [kTile][D]
-  float* ps = vs + kTile * D;       // [G][kTile]: scores, then P
-  float* alpha_s = ps + G * kTile;  // [G]
-  float* m_s = alpha_s + G;         // [G]
-  float* l_s = m_s + G;             // [G]
+__device__ __forceinline__ void finish_split(const float* wo, int wstride,
+                                             const float* wm,
+                                             const float* wl,
+                                             const SplitArgs& a, T* out,
+                                             int* is_last) {
+  const int tid = threadIdx.x;
+  const int64_t part = (a.bh * a.splits + a.si) * a.G + a.g0;
+  for (int e = tid; e < a.Gc * D; e += kThreads) {
+    const int g = e / D;
+    float mx = wm[g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wm[w * GM + g]);
+    float acc = 0.0f, den = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = __expf(wm[w * GM + g] - mx);
+      acc += f * wo[w * wstride + e];
+      den += f * wl[w * GM + g];
+    }
+    a.o_part[part * D + e] = acc;
+    if (e % D == 0) {
+      a.m_part[part + g] = mx;
+      a.l_part[part + g] = den;
+    }
+  }
+  if (out == nullptr) return;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int si = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int splits = gridDim.x, Hkv = gridDim.y;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    unsigned int* ticket = a.tickets + blockIdx.z * gridDim.y + blockIdx.y;
+    const bool last = atomicAdd(ticket, 1u) == (unsigned int)a.splits - 1;
+    if (last) *ticket = 0;  // ready for the next launch
+    *is_last = last;
+  }
+  __syncthreads();
+  if (!*is_last) return;
+  __threadfence();
+  const int64_t first = a.bh * a.splits * a.G + a.g0;  // (split 0, g0)
+  for (int e = tid; e < a.Gc * D; e += kThreads) {
+    const int g = e / D;
+    float mx = kNegInf, acc = 0.0f, den = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < a.splits; ++s) {
+      const int64_t r = first + (int64_t)s * a.G + g;
+      const float ms = __ldcg(a.m_part + r), ls = __ldcg(a.l_part + r);
+      const float os = __ldcg(a.o_part + r * D + e % D);
+      const float mn = fmaxf(mx, ms);
+      const float f0 = __expf(mx - mn), f1 = __expf(ms - mn);
+      den = den * f0 + ls * f1;
+      acc = acc * f0 + os * f1;
+      mx = mn;
+    }
+    out[(a.bh * a.G + a.g0) * D + e] =
+        static_cast<T>(acc / fmaxf(den, 1e-30f));
+  }
+}
+
+// GM: the most query rows per KV head a CTA takes (2 or 8); it sizes the
+// per-lane accumulators.  CAP: softcap > 0 (a separate build, so that
+// uncapped scores pay nothing for it).
+template <typename T, int D, int GM, bool CAP>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, float* __restrict__ m_part,
+              float* __restrict__ l_part, float* __restrict__ o_part,
+              T* __restrict__ out, unsigned int* __restrict__ tickets,
+              int G, int S, int kv_len, int split, float scale,
+              float softcap) {
+  using P = Plan<T, D>;
+  constexpr int EPL = P::EPL, LPR = P::LPR, U = P::U, VPL = P::VPL;
+  __shared__ __align__(16) float qs[GM * D];  // this CTA's rows, scaled
+  // the warps' K/V rings; after the slot loop, their (o) partials
+  __shared__ __align__(16) uint4 ring_raw[kWarps * kStages * kStageVecs];
+  // warp w's partial o: [GM][D] at the start of its own ring
+  float* wo = reinterpret_cast<float*>(ring_raw);
+  constexpr int kRingFloats = kStages * kStageVecs * 4;  // one warp's ring
+  static_assert(GM * D <= kRingFloats, "o partials fit a warp's ring");
+  static_assert(2 * 32 * U * VPL == kStageVecs, "a stage is one iteration");
+  __shared__ float wm[kWarps * GM], wl[kWarps * GM];
+  __shared__ int is_last;
+
+  const int si = blockIdx.x, splits = gridDim.x;
+  const int chunks = (G + GM - 1) / GM;
+  const int hk = blockIdx.y / chunks, gc = blockIdx.y - hk * chunks;
+  const int Hkv = gridDim.y / chunks, b = blockIdx.z;
+  const int g0 = gc * GM, Gc = min(GM, G - g0);
   const int64_t bh = (int64_t)b * Hkv + hk;
-  const int64_t part = bh * splits + si;
   const int s_lo = si * split;
   const int s_hi = min(s_lo + split, min(kv_len, S));
-  const T* kp = k + bh * S * D;
-  const T* vp = v + bh * S * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane / LPR, cl = lane % LPR;
 
-  for (int e = tid; e < G * D; e += kThreads) qs[e] = q[bh * G * D + e] * scale;
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.0f;
+  for (int e = tid; e < Gc * D; e += kThreads) {
+    const T x = q[(bh * G + g0) * D + e];
+    qs[e] = static_cast<float>(x) * scale;
   }
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+  __syncthreads();
 
-  const int c_me = tid % kTile;          // this thread's slot in a tile
-  const int g_me = tid / kTile;          // its first score row
-  constexpr int g_step = kThreads / kTile;
-
-  for (int t0 = s_lo; t0 < s_hi; t0 += kTile) {
-    const int n = min(kTile, s_hi - t0);
-    __syncthreads();  // q, m, l ready; the last tile's readers are done
-    for (int e = tid; e < kTile * D / VEC; e += kThreads) {
-      const int r = e * VEC / D, c0 = e * VEC - r * D;
-      float kx[VEC], vx[VEC];
-      if (r < n) {
-        Vec<T>::load(kp + (int64_t)(t0 + r) * D + c0, kx);
-        Vec<T>::load(vp + (int64_t)(t0 + r) * D + c0, vx);
-      } else {  // past the split's end: zeros, so that P = 0 times V is 0
+  float m[GM], l[GM], o[GM][EPL];
 #pragma unroll
-        for (int u = 0; u < VEC; ++u) kx[u] = vx[u] = 0.0f;
-      }
+  for (int g = 0; g < GM; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.0f;
 #pragma unroll
-      for (int u = 0; u < VEC; ++u) {
-        ks[r * KS + c0 + u] = kx[u];
-        vs[r * D + c0 + u] = vx[u];
-      }
-    }
-    __syncthreads();
-
-    // scores of slot c_me for rows g_me, g_me + g_step, ...
-    float sc[NS];
+    for (int e = 0; e < EPL; ++e) o[g][e] = 0.0f;
+  }
+  // Each warp streams iterations i = 0, 1, ... of SPI slots (slot base
+  // s_lo + (warp + kWarps i) SPI) through its own ring of kStages stages in
+  // shared memory with cp.async, kStages - 1 iterations ahead.  A lane
+  // copies exactly the 16-byte chunks it reads back, so it waits for its
+  // own copies only: no barrier, not even a warp's.
+  const T* kb = k + bh * S * D + cl * P::VEC;
+  const T* vb = v + bh * S * D + cl * P::VEC;
+  uint4* ring = reinterpret_cast<uint4*>(ring_raw) +
+                warp * kStages * kStageVecs;
+  const int n_iter = max(0, (s_hi - s_lo - warp * P::SPI + kWarps * P::SPI -
+                             1) / (kWarps * P::SPI));
+  auto issue = [&](int i) {
+    if (i < n_iter) {
+      uint4* stage = ring + (i % kStages) * kStageVecs;
+      const int base = s_lo + (warp + kWarps * i) * P::SPI;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) sc[j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 k4 = *reinterpret_cast<const float4*>(ks + c_me * KS + d);
+      for (int u = 0; u < U; ++u) {
+        const int slot = base + u * P::RPI + rg;
+        const bool ok = slot < s_hi;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int g = g_me + g_step * j;
-        if (g < G) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qs + g * D + d);
-          sc[j] = fmaf(q4.x, k4.x, sc[j]);
-          sc[j] = fmaf(q4.y, k4.y, sc[j]);
-          sc[j] = fmaf(q4.z, k4.z, sc[j]);
-          sc[j] = fmaf(q4.w, k4.w, sc[j]);
+        for (int w = 0; w < VPL; ++w) {
+          const int64_t off = ok ? (int64_t)slot * D + w * LPR * P::VEC : 0;
+          const int at = (u * VPL + w) * 32 + lane;
+          cp_async16(stage + at, kb + off, ok);
+          cp_async16(stage + kStageVecs / 2 + at, vb + off, ok);
         }
       }
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int g = g_me + g_step * j;
-      if (g < G) {
-        float x = sc[j];
-        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        ps[g * kTile + c_me] = c_me < n ? x : kNegInf;
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  for (int i = 0; i < n_iter; ++i) {
+    issue(i + kStages - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+    const uint4* stage = ring + (i % kStages) * kStageVecs;
+    const int base = s_lo + (warp + kWarps * i) * P::SPI;
+    uint4 kr[U][VPL], vr[U][VPL];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = base + u * P::RPI + rg < s_hi;
+#pragma unroll
+      for (int w = 0; w < VPL; ++w) {
+        const int at = (u * VPL + w) * 32 + lane;
+        kr[u][w] = stage[at];
+        vr[u][w] = stage[kStageVecs / 2 + at];
       }
     }
-    __syncthreads();
-
-    // online softmax: one warp per row
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float a = ps[g * kTile + lane], c = ps[g * kTile + lane + 32];
-      const float mo = m_s[g];
-      const float mn = fmaxf(mo, warp_max(fmaxf(a, c)));
-      const float pa = a <= kNegInf ? 0.0f : expf(a - mn);
-      const float pc = c <= kNegInf ? 0.0f : expf(c - mn);
-      ps[g * kTile + lane] = pa;
-      ps[g * kTile + lane + 32] = pc;
-      const float rs = warp_sum(pa + pc);
-      if (lane == 0) {
-        const float al = expf(mo - mn);
-        alpha_s[g] = al;
-        l_s[g] = l_s[g] * al + rs;
-        m_s[g] = mn;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V for entries (g, d) = divmod(tid + 128 i, D)
+    float kf[U][EPL];
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int e = tid + kThreads * i;
-      if (e < G * D) acc[i] *= alpha_s[e / D];
-    }
-#pragma unroll 2
-    for (int c = 0; c < kTile; c += 4) {
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) {
-        const int e = tid + kThreads * i;
-        if (e < G * D) {
-          const int g = e / D, d = e % D;
-          const float4 p4 = *reinterpret_cast<const float4*>(ps + g * kTile + c);
-          acc[i] = fmaf(p4.x, vs[(c + 0) * D + d], acc[i]);
-          acc[i] = fmaf(p4.y, vs[(c + 1) * D + d], acc[i]);
-          acc[i] = fmaf(p4.z, vs[(c + 2) * D + d], acc[i]);
-          acc[i] = fmaf(p4.w, vs[(c + 3) * D + d], acc[i]);
+      for (int w = 0; w < VPL; ++w)
+        Vec<T>::to_float(kr[u][w], &kf[u][w * P::VEC]);
+
+    // scores of this lane group's slots, reduced over the row's lanes
+    float sc[GM][U];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= Gc) break;
+      float qv[EPL];
+#pragma unroll
+      for (int w = 0; w < VPL; ++w)
+#pragma unroll
+        for (int e = 0; e < P::VEC; e += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              qs + g * D + (cl + w * LPR) * P::VEC + e);
+          qv[w * P::VEC + e] = x.x;
+          qv[w * P::VEC + e + 1] = x.y;
+          qv[w * P::VEC + e + 2] = x.z;
+          qv[w * P::VEC + e + 3] = x.w;
         }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float d = 0.0f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qv[e], kf[u][e], d);
+#pragma unroll
+        for (int off = 1; off < LPR; off <<= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        if (CAP) d = softcap * tanhf(d / softcap);
+        sc[g][u] = ok[u] ? d : kNegInf;
+      }
+    }
+
+    float vf[U][EPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int w = 0; w < VPL; ++w)
+        Vec<T>::to_float(vr[u][w], &vf[u][w * P::VEC]);
+    // online softmax of each query row over this lane group's slots
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= Gc) break;
+      float mx = sc[g][0];
+#pragma unroll
+      for (int u = 1; u < U; ++u) mx = fmaxf(mx, sc[g][u]);
+      const float mn = fmaxf(m[g], mx);
+      const float al = __expf(m[g] - mn);
+      m[g] = mn;
+      float p[U], rs = 0.0f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = sc[g][u] <= kNegInf ? 0.0f : __expf(sc[g][u] - mn);
+        rs += p[u];
+      }
+      l[g] = l[g] * al + rs;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        float x = o[g][e] * al;
+#pragma unroll
+        for (int u = 0; u < U; ++u) x = fmaf(p[u], vf[u][e], x);
+        o[g][e] = x;
       }
     }
   }
-  __syncthreads();  // m, l final
 
+  // merge the warp's lane groups (lanes cl, cl + LPR, ...), then the CTA's
+  // warps, in a fixed order
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int e = tid + kThreads * i;
-    if (e < G * D) o_out[part * G * D + e] = acc[i];
+  for (int g = 0; g < GM; ++g) {
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mn = fmaxf(m[g], mo);
+      const float a = __expf(m[g] - mn), c = __expf(mo - mn);
+      l[g] = l[g] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const float oo = __shfl_xor_sync(0xffffffffu, o[g][e], off);
+        o[g][e] = o[g][e] * a + oo * c;
+      }
+      m[g] = mn;
+    }
   }
-  for (int g = tid; g < G; g += kThreads) {
-    m_out[part * G + g] = m_s[g];
-    l_out[part * G + g] = l_s[g];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (rg == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= Gc) break;
+#pragma unroll
+      for (int w = 0; w < VPL; ++w)
+#pragma unroll
+        for (int e = 0; e < P::VEC; ++e)
+          wo[warp * kRingFloats + g * D + (cl + w * LPR) * P::VEC + e] =
+              o[g][w * P::VEC + e];
+      if (cl == 0) {
+        wm[warp * GM + g] = m[g];
+        wl[warp * GM + g] = l[g];
+      }
+    }
   }
+  __syncthreads();
+  finish_split<T, D, GM>(wo, kRingFloats, wm, wl,
+                         SplitArgs{m_part, l_part, o_part, tickets, G, g0, Gc,
+                                   bh, si, splits},
+                         out, &is_last);
 }
 
+// ---- bf16, D >= 64: scores and P V on the tensor cores (mma.sync) ------ //
+constexpr int kMmaSlots = 16;  // cache slots a warp takes per iteration
+constexpr int kMmaStages = 3;  // a warp's cp.async ring depth
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The log-sum-exp merge of the splits' partials, one CTA per query row
-// (b, hk, g): alpha_s = exp(m_s - max m), out = sum alpha_s o_s /
-// max(sum alpha_s l_s, 1e-30) — the reference's merge, in the order of the
-// splits.  out is (B, Hkv*G, D) in the query's type.
-template <typename TO>
-__global__ void merge_kernel(const float* __restrict__ m,
-                             const float* __restrict__ l,
-                             const float* __restrict__ o,
-                             TO* __restrict__ out, int splits, int G, int D) {
-  const int64_t r = blockIdx.x;
-  const int64_t bh = r / G;
-  const int g = (int)(r - bh * G);
-  const float* mp = m + bh * splits * G + g;
-  const float* lp = l + bh * splits * G + g;
-  float m_star = mp[0];
-  for (int s = 1; s < splits; ++s) m_star = fmaxf(m_star, mp[(int64_t)s * G]);
-  float l_total = 0.0f;
-  for (int s = 0; s < splits; ++s)
-    l_total += lp[(int64_t)s * G] * expf(mp[(int64_t)s * G] - m_star);
-  const float lc = fmaxf(l_total, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.0f;
-    for (int s = 0; s < splits; ++s)
-      acc += o[((bh * splits + s) * G + g) * D + d] *
-             expf(mp[(int64_t)s * G] - m_star);
-    out[r * D + d] = from_float<TO>(acc / lc);
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16-byte chunk c of row r of a stage's [rows][D] tile, swizzled so that
+// the 8 rows an ldmatrix reads at one chunk fall in distinct banks
+template <int D>
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  return r * (D / 8) + ((c & ~7) | ((c ^ r) & 7));
+}
+
+// The rows of the m16n8k16 products: query rows g (0..7) of the CTA's
+// chunk; rows 8..15 of the A operand carry P's low half (P = P_hi + P_lo,
+// both bf16) in the P V product, and zeros in the Q K^T product.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(kThreads)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  float* __restrict__ m_part, float* __restrict__ l_part,
+                  float* __restrict__ o_part, __nv_bfloat16* __restrict__ out,
+                  unsigned int* __restrict__ tickets, int G, int S,
+                  int kv_len, int split, float scale, float softcap) {
+  constexpr int GM = 8;
+  constexpr int kChunks = kMmaSlots * D / 8;  // 16-byte chunks of K (or V)
+  constexpr int kStageChunks = 2 * kChunks;   // K then V
+  extern __shared__ __align__(16) uint4 ring_all[];
+  __shared__ float wm[kWarps * GM], wl[kWarps * GM];
+  __shared__ int is_last;
+
+  const int si = blockIdx.x, splits = gridDim.x;
+  const int chunks = (G + GM - 1) / GM;
+  const int hk = blockIdx.y / chunks, gc = blockIdx.y - hk * chunks;
+  const int Hkv = gridDim.y / chunks, b = blockIdx.z;
+  const int g0 = gc * GM, Gc = min(GM, G - g0);
+  const int64_t bh = (int64_t)b * Hkv + hk;
+  const int s_lo = si * split;
+  const int s_hi = min(s_lo + split, min(kv_len, S));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;  // fragment row, column pair
+
+  // Q's A fragments (rows 8..15 zero), straight from q in bf16
+  uint32_t qa[D / 16][2];
+  {
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+        q + (bh * G + g0 + gr) * D);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      qa[ks][0] = gr < Gc ? qrow[8 * ks + t] : 0u;
+      qa[ks][1] = gr < Gc ? qrow[8 * ks + 4 + t] : 0u;
+    }
   }
+
+  uint4* ring = ring_all + warp * kMmaStages * kStageChunks;
+  const int n_iter = max(0, (s_hi - s_lo - warp * kMmaSlots +
+                             kWarps * kMmaSlots - 1) / (kWarps * kMmaSlots));
+  const __nv_bfloat16* kb = k + bh * S * D;
+  const __nv_bfloat16* vb = v + bh * S * D;
+  auto issue = [&](int i) {
+    if (i < n_iter) {
+      uint4* stage = ring + (i % kMmaStages) * kStageChunks;
+      const int base = s_lo + (warp + kWarps * i) * kMmaSlots;
+#pragma unroll
+      for (int j = lane; j < kChunks; j += 32) {
+        const int r = j / (D / 8), c = j % (D / 8);
+        const bool ok = base + r < s_hi;
+        const int64_t off = ok ? (int64_t)(base + r) * D + 8 * c : 0;
+        cp_async16(stage + chunk_at<D>(r, c), kb + off, ok);
+        cp_async16(stage + kChunks + chunk_at<D>(r, c), vb + off, ok);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int i = 0; i < kMmaStages - 1; ++i) issue(i);
+
+  float acc[D / 8][4];  // O: rows gr (P_hi V) and gr + 8 (P_lo V)
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float m = kNegInf, l = 0.0f;  // row gr; l is this lane's part
+
+  for (int i = 0; i < n_iter; ++i) {
+    issue(i + kMmaStages - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmaStages - 1)
+                 : "memory");
+    __syncwarp();  // every lane's copies of this stage have landed
+    const uint4* kt = ring + (i % kMmaStages) * kStageChunks;
+    const uint4* vt = kt + kChunks;
+    const int base = s_lo + (warp + kWarps * i) * kMmaSlots;
+
+    // S (16 x 16 slots) = Q K^T: ldmatrix gives K^T's B fragments for
+    // slots 0-7 (r[0], r[1]) and 8-15 (r[2], r[3]) of a 16-wide d step
+    float sc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t r[4];
+      const int mi = lane >> 3;  // the matrix this lane addresses
+      ldsm_x4(r, kt + chunk_at<D>(8 * (mi >> 1) + (lane & 7),
+                                  2 * ks + (mi & 1)));
+      const uint32_t a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+      mma_bf16(sc[0], a, r[0], r[1]);
+      mma_bf16(sc[1], a, r[2], r[3]);
+    }
+
+    // row gr's scores: slots base + 8n + 2t + e, in sc[n][e] (e < 2)
+    float x[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float y = sc[n][e] * scale;
+        if (CAP) y = softcap * tanhf(y / softcap);
+        x[2 * n + e] = base + 8 * n + 2 * t + e < s_hi ? y : kNegInf;
+      }
+    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m, mx);
+    const float al = __expf(m - mn);
+    m = mn;
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[e] = x[e] <= kNegInf ? 0.0f : __expf(x[e] - mn);
+    l = l * al + (p[0] + p[1]) + (p[2] + p[3]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= al;
+
+    // P's A fragment over the 16 slots: rows gr = P_hi, gr + 8 = P_lo
+    uint32_t pa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p[2 * n], p[2 * n + 1]);
+      const float2 hf = __bfloat1622float2(hi);
+      pa[2 * n] = *reinterpret_cast<const uint32_t*>(&hi);
+      pa[2 * n + 1] = pack2(p[2 * n] - hf.x, p[2 * n + 1] - hf.y);
+    }
+    // O += P V: ldmatrix.trans gives V's B fragments for d tiles 2j, 2j+1
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      uint32_t r[4];
+      const int mi = lane >> 3;
+      ldsm_x4_trans(r, vt + chunk_at<D>(8 * (mi & 1) + (lane & 7),
+                                        2 * j + (mi >> 1)));
+      mma_bf16(acc[2 * j], pa, r[0], r[1]);
+      mma_bf16(acc[2 * j + 1], pa, r[2], r[3]);
+    }
+    __syncwarp();  // the stage is read before it is refilled
+  }
+
+  // this warp's (m, l, o) of rows g: l over the row's 4 lanes, o = hi + lo
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  float* wo = reinterpret_cast<float*>(ring);  // [GM][D], this warp's ring
+  constexpr int kRingFloats = kMmaStages * kStageChunks * 4;
+  static_assert(GM * D <= kRingFloats, "o partials fit a warp's ring");
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    wo[gr * D + 8 * j + 2 * t] = acc[j][0] + acc[j][2];
+    wo[gr * D + 8 * j + 2 * t + 1] = acc[j][1] + acc[j][3];
+  }
+  if (t == 0) {
+    wm[warp * GM + gr] = m;
+    wl[warp * GM + gr] = l;
+  }
+  __syncthreads();
+  finish_split<__nv_bfloat16, D, GM>(
+      reinterpret_cast<const float*>(ring_all), kRingFloats, wm, wl,
+      SplitArgs{m_part, l_part, o_part, tickets, G, g0, Gc, bh, si, splits},
+      out, &is_last);
+}
+
+template <int D>
+constexpr int mma_smem() {
+  return kWarps * kMmaStages * 2 * kMmaSlots * D * 2;
 }
 
 template <typename T, int D, int GM>
-cudaError_t launch(const float* q, const void* k, const void* v, float* m,
-                   float* l, float* o, int B, int Hkv, int G, int S,
-                   int kv_len, int splits, int split, float scale,
-                   float softcap, cudaStream_t st) {
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T, D, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(smem_floats(GM, D) * sizeof(float)));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const size_t smem = smem_floats(G, D) * sizeof(float);
-  const dim3 grid(splits, Hkv, B);
-  decode_kernel<T, D, GM><<<grid, kThreads, smem, st>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), m, l, o, G, S,
+cudaError_t launch(const void* q, const void* k, const void* v, float* m,
+                   float* l, float* o, void* out, unsigned int* tickets,
+                   int B, int Hkv, int G, int S, int kv_len, int splits,
+                   int split, float scale, float softcap, cudaStream_t st) {
+  const int chunks = (G + GM - 1) / GM;
+  if ((int64_t)Hkv * chunks > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid(splits, Hkv * chunks, B);
+  auto kernel = softcap > 0.0f ? decode_kernel<T, D, GM, true>
+                               : decode_kernel<T, D, GM, false>;
+  kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), m, l, o, static_cast<T*>(out), tickets, G, S,
       kv_len, split, scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const float* q, const void* k, const void* v, float* m,
-                     float* l, float* o, int B, int Hkv, int G, int S, int D,
-                     int kv_len, int splits, int split, float scale,
-                     float softcap, cudaStream_t st) {
-#define FD_CASE(DD)                                                        \
-  case DD:                                                                 \
-    return G <= 8 ? launch<T, DD, 8>(q, k, v, m, l, o, B, Hkv, G, S,       \
-                                     kv_len, splits, split, scale,         \
-                                     softcap, st)                          \
-                  : launch<T, DD, kMaxGroup>(q, k, v, m, l, o, B, Hkv, G,  \
-                                             S, kv_len, splits, split,     \
-                                             scale, softcap, st);
-  switch (D) {
-    FD_CASE(8)
-    FD_CASE(16)
-    FD_CASE(32)
-    FD_CASE(64)
-    FD_CASE(128)
-    FD_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, float* m,
+                       float* l, float* o, void* out, unsigned int* tickets,
+                       int B, int Hkv, int G, int S, int kv_len, int splits,
+                       int split, float scale, float softcap,
+                       cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const int chunks = (G + 7) / 8;
+  if ((int64_t)Hkv * chunks > 65535) return cudaErrorInvalidConfiguration;
+  static bool configured = false;  // one attribute call per head dim
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_mma_kernel<D, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<D>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_mma_kernel<D, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 mma_smem<D>());
+    if (err != cudaSuccess) return err;
+    configured = true;
   }
-#undef FD_CASE
+  const dim3 grid(splits, Hkv * chunks, B);
+  auto kernel = softcap > 0.0f ? decode_mma_kernel<D, true>
+                               : decode_mma_kernel<D, false>;
+  kernel<<<grid, kThreads, mma_smem<D>(), st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), m, l, o, static_cast<bf16*>(out), tickets,
+      G, S, kv_len, split, scale, softcap);
+  return cudaGetLastError();
 }
+
+#define FD_ARGS q, k, v, m, l, o, out, tickets, B, Hkv, G, S, kv_len, splits, \
+                split, scale, softcap, st
+#define FD_SCALAR(T, DD)                                                      \
+  case DD:                                                                    \
+    return G <= 2 ? launch<T, DD, 2>(FD_ARGS) : launch<T, DD, 8>(FD_ARGS);
+
+// fp32: the scalar kernel at every head dim; bf16: the tensor-core kernel
+// from D = 64 up, the scalar one below
+cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v,
+                     float* m, float* l, float* o, void* out,
+                     unsigned int* tickets, int B, int Hkv, int G, int S,
+                     int D, int kv_len, int splits, int split, float scale,
+                     float softcap, cudaStream_t st) {
+  if (dtype == 0) {
+    switch (D) {
+      FD_SCALAR(float, 8)
+      FD_SCALAR(float, 16)
+      FD_SCALAR(float, 32)
+      FD_SCALAR(float, 64)
+      FD_SCALAR(float, 128)
+      FD_SCALAR(float, 256)
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      FD_SCALAR(__nv_bfloat16, 8)
+      FD_SCALAR(__nv_bfloat16, 16)
+      FD_SCALAR(__nv_bfloat16, 32)
+      case 64:
+        return launch_mma<64>(FD_ARGS);
+      case 128:
+        return launch_mma<128>(FD_ARGS);
+      case 256:
+        return launch_mma<256>(FD_ARGS);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+#undef FD_SCALAR
+#undef FD_ARGS
 
 }  // namespace
 
@@ -339,44 +722,31 @@ extern "C" int flash_decode_supports(int G, int D) {
          (D == 8 || D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
 }
 
-// dtype 0: fp32 cache, 1: bf16 cache; q is fp32 (B, Hkv, G, D); k and v
-// contiguous (B, Hkv, S, D) with 16-byte aligned bases.  ws holds the
+// q (B, Hkv, G, D), k and v (B, Hkv, S, D), all contiguous, of dtype 0:
+// fp32 or 1: bf16 alike, with 16-byte aligned bases.  ws holds the
 // partials, fp32: m and l (B, Hkv, splits, G) then o (B, Hkv, splits, G,
-// D); every split is written.  When out is not null the merge follows on
-// the same stream and writes out (B, Hkv*G, D) in out_dtype (0: fp32,
-// 1: bf16).  Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int flash_decode(const float* q, const void* k, const void* v,
-                            float* ws, void* out, int dtype, int out_dtype,
-                            int B, int Hkv, int G, int S, int D, int kv_len,
-                            int splits, int split, float scale,
+// D); every split of the grid is written.  When out is not null (then
+// splits = ceil(min(kv_len, S) / split)), the same launch merges them into
+// out (B, Hkv*G, D), and tickets must hold B * Hkv * ceil(G / GM) zeros
+// (GM = 2 for G <= 2, else 8: B * Hkv * 4 ints cover every G <= 32), which
+// the launch leaves at 0.  Returns cudaGetLastError() after the launch (0
+// on success).
+extern "C" int flash_decode(const void* q, const void* k, const void* v,
+                            float* ws, void* out, unsigned int* tickets,
+                            int dtype, int B, int Hkv, int G, int S, int D,
+                            int kv_len, int splits, int split, float scale,
                             float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Hkv < 1 || B > 65535 || Hkv > 65535 || S < 1 || kv_len < 1 ||
-      splits < 1 || split < 1 || !flash_decode_supports(G, D))
+  if (B < 1 || Hkv < 1 || B > 65535 || S < 1 || kv_len < 1 || splits < 1 ||
+      split < 1 || !flash_decode_supports(G, D) ||
+      (out != nullptr && tickets == nullptr))
     return cudaErrorInvalidValue;
   const int64_t rows = (int64_t)B * Hkv * G;
   float* m = ws;
   float* l = ws + rows * splits;
   float* o = ws + 2 * rows * splits;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, m, l, o, B, Hkv, G, S, D, kv_len, splits,
-                          split, scale, softcap, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, m, l, o, B, Hkv, G, S, D, kv_len,
-                                  splits, split, scale, softcap, st);
-  if (err != cudaSuccess || out == nullptr) return err;
-  if (rows > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const int threads = D < 128 ? D : 128;
-  if (out_dtype == 0)
-    merge_kernel<float><<<(unsigned)rows, threads, 0, st>>>(
-        m, l, o, static_cast<float*>(out), splits, G, D);
-  else if (out_dtype == 1)
-    merge_kernel<__nv_bfloat16><<<(unsigned)rows, threads, 0, st>>>(
-        m, l, o, static_cast<__nv_bfloat16*>(out), splits, G, D);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return dispatch(dtype, q, k, v, m, l, o, out, tickets, B, Hkv, G, S, D,
+                  kv_len, splits, split, scale, softcap, st);
 }
 
 extern "C" const char* flash_decode_error(int code) {

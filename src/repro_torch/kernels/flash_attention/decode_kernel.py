@@ -4,9 +4,11 @@ PyTorch version.
 
 Decode attention has no parallelism along the query axis, so the cache is
 cut into splits: the kernel's grid covers (split, KV head, request), each
-CTA reduces its split to partial ``(m, l, acc)`` in fp32, and a log-sum-exp
-merge combines them exactly: a second small kernel launched by the same
-call (the reference left it to XLA, outside the Pallas kernel).
+CTA reduces its split to partial ``(m, l, acc)`` in fp32, and the last CTA
+of each KV head to finish merges them with the exact log-sum-exp combine
+(the reference leaves that merge to XLA, outside the Pallas kernel).  A
+call is one launch: q is read in its own dtype by the kernel, and the
+splits are planned from the live ``kv_len``, not the allocated horizon.
 ``kv_len`` is a runtime argument of the kernel: a new decode position
 launches the same build.
 
@@ -28,20 +30,21 @@ from .kernel import DTYPES, HEAD_DIMS, check_operand
 from .ops import pick_backend
 
 __all__ = ["flash_decode", "flash_decode_ref", "flash_decode_cuda",
-           "flash_decode_partials_cuda", "split_length", "MAX_GROUP",
-           "NEG_INF"]
+           "flash_decode_partials_cuda", "split_length", "live_splits",
+           "MAX_GROUP", "NEG_INF"]
 
 NEG_INF = -1e30
 #: query rows per KV head the kernel takes
 MAX_GROUP = 32
-#: cache slots a CTA streams per step; auto split lengths are multiples
+#: cache slots a CTA streams per round (its 4 warps' steps); auto split
+#: lengths are multiples
 TILE = 64
 #: CTAs per SM the automatic split count aims for
 _CTAS_PER_SM = 4
 
 _P, _I32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "flash_decode": ([_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+    "flash_decode": ([_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                       _I32, _I32, _I32, _I32, _F, _F, _P], _I32),
     "flash_decode_error": ([_I32], ctypes.c_char_p),
 }
@@ -55,20 +58,31 @@ def _sm_count(device: torch.device) -> int:
 
 
 def split_length(batch: int, kv_heads: int, S: int,
-                 kv_splits: Optional[int], device: torch.device) -> int:
+                 kv_splits: Optional[int], device: torch.device,
+                 kv_len: Optional[int] = None) -> int:
     """Cache slots per split.  ``kv_splits`` given: ``ceil(S / kv_splits)``
-    (so there are at most ``kv_splits`` splits).  None: enough splits that
-    ``batch * kv_heads * splits`` is about 4 CTAs per SM, each a multiple
-    of :data:`TILE` slots — the reference's default of 8 splits leaves
-    most of 132 SMs idle at 8 requests × 4 KV heads."""
+    (so there are at most ``kv_splits`` splits).  None: enough splits of the
+    live prefix ``kv_len`` (None: ``S``) that ``batch * kv_heads * splits``
+    is about 4 CTAs per SM, each a multiple of :data:`TILE` slots — the
+    reference's default of 8 splits leaves most of 132 SMs idle at 8
+    requests × 4 KV heads.  The kernel is launched for the splits that hold
+    live slots, ``ceil(kv_len / split)``, so a short live prefix early in a
+    serve run is spread over the card rather than over the horizon."""
     if kv_splits is not None:
         if kv_splits < 1:
             raise ValueError(f"kv_splits must be ≥ 1, got {kv_splits}")
         return -(-S // kv_splits)
+    live = S if kv_len is None else int(kv_len)
     want = -(-_CTAS_PER_SM * _sm_count(device) // (batch * kv_heads))
-    splits = max(1, min(want, -(-S // TILE)))
-    per_split = -(-S // splits)
+    splits = max(1, min(want, -(-live // TILE)))
+    per_split = -(-live // splits)
     return -(-per_split // TILE) * TILE  # whole tiles
+
+
+def live_splits(kv_len: int, split: int) -> int:
+    """Splits of ``split`` slots that hold live slots: what the merging
+    kernel is launched for (none lies wholly at or past ``kv_len``)."""
+    return -(-kv_len // split)
 
 
 def _check_decode(q, k, v, kv_len):
@@ -88,6 +102,20 @@ def _check_decode(q, k, v, kv_len):
     return B, Hq, Hkv, S, D, kv_len
 
 
+#: per device, the kernel's merge tickets: zeros that each launch leaves
+#: at zero.  Calls on one device share them, so they must not run at once
+#: on two streams (everything in this package runs on the current stream).
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
     if not q.is_cuda:
         raise ValueError("flash_decode: q must be a CUDA tensor")
@@ -95,10 +123,12 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
     if k.dtype not in DTYPES:
         raise TypeError(f"flash_decode takes a {sorted(map(str, DTYPES))} "
                         f"cache, got {k.dtype}")
-    if merge and q.dtype not in DTYPES:
-        raise TypeError(f"flash_decode: q has dtype {q.dtype}")
+    if q.dtype != k.dtype:
+        raise TypeError(f"flash_decode: q has dtype {q.dtype}, the cache "
+                        f"{k.dtype}; the kernel takes them alike")
     for t, what in ((k, "k"), (v, "v")):
         check_operand(t, what, k.dtype, q.device)
+    q = q.contiguous()  # (B, Hq, 1, D) from (B, 1, Hq, D): already is
     G = Hq // Hkv
     if D not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"head dim {D} / group {G} not supported; the "
@@ -106,21 +136,23 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
     if split < 1 or max(B, Hkv) > 65535:
         raise ValueError(f"unsupported split {split} or shape "
                          f"{tuple(k.shape)}")
-    splits = -(-S // split)
+    # merged: only the splits that hold live slots; partials: all of them
+    splits = live_splits(kv_len if merge else S, split)
     dev = q.device
-    qf = q.reshape(B, Hkv, G, D).to(torch.float32).contiguous()
     rows = B * Hkv * splits * G
     ws = torch.empty(rows * (2 + D), dtype=torch.float32, device=dev)
     out = torch.empty((B, Hq, 1, D), dtype=q.dtype, device=dev) \
         if merge else None
+    tickets = _tickets(dev, B * Hkv * 4) if merge else None
     lib = cuda_build.load("flash_decode", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flash_decode(
-            qf.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(),
-            None if out is None else out.data_ptr(), DTYPES[k.dtype],
-            DTYPES[q.dtype] if merge else 0, B, Hkv, G, S, D, kv_len, splits,
-            split, float(scale), float(softcap), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            DTYPES[k.dtype], B, Hkv, G, S, D, kv_len, splits, split,
+            float(scale), float(softcap), stream)
     cuda_build.check_launch(lib, "flash_decode", rc)
     cuda_build.launches["flash_decode"] += 1
     if merge:
@@ -132,9 +164,11 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
 
 def flash_decode_cuda(q, k, v, *, scale: float, kv_len: int, split: int,
                       softcap: float) -> torch.Tensor:
-    """Launch the kernel and its merge: ``q`` (B, Hq, 1, D) fp32 or bf16,
-    ``k``/``v`` (B, Hkv, S, D) fp32 or bf16 on the card.  Returns
-    (B, Hq, 1, D) in ``q.dtype``, as :func:`flash_decode_ref`."""
+    """Launch the kernel, which merges its splits itself (one launch):
+    ``q`` (B, Hq, 1, D) and ``k``/``v`` (B, Hkv, S, D), all fp32 or all
+    bf16, on the card; splits of ``split`` slots over the first ``kv_len``.
+    Returns (B, Hq, 1, D) in ``q.dtype``, as :func:`flash_decode_ref`, the
+    same bits on every call."""
     return _launch(q, k, v, scale=scale, kv_len=kv_len, split=split,
                    softcap=softcap, merge=True)
 
@@ -142,7 +176,8 @@ def flash_decode_cuda(q, k, v, *, scale: float, kv_len: int, split: int,
 def flash_decode_partials_cuda(q, k, v, *, scale: float, kv_len: int,
                                split: int, softcap: float
                                ) -> Tuple[torch.Tensor, ...]:
-    """Launch the kernel alone: for each split of ``split`` slots, fp32
+    """Launch the kernel without its merge: for each split of ``split``
+    slots of the whole cache, fp32
     ``m`` = max score and ``l`` = Σ exp(s − m), (B, Hkv, splits, G), and
     ``o`` = Σ exp(s − m)·v, (B, Hkv, splits, G, D), over the slots below
     ``kv_len``.  A split with no such slot gives ``m = -1e30, l = 0,
@@ -169,7 +204,8 @@ def flash_decode(
     B, Hq, Hkv, S, D, kv_len = _check_decode(q, k, v, kv_len)
     if scale is None:
         scale = D ** -0.5
-    split = split_length(B, Hkv, S, kv_splits, q.device)  # checks kv_splits
+    # checks kv_splits
+    split = split_length(B, Hkv, S, kv_splits, q.device, kv_len=kv_len)
     if pick_backend(q, backend) == "cuda":
         return flash_decode_cuda(q, k, v, scale=scale, kv_len=kv_len,
                                  split=split, softcap=softcap)

@@ -1,8 +1,10 @@
 """Public flash attention: :func:`attention` picks the backend.
 
-* ``"cuda"`` — the hand-written kernel in :mod:`.kernel`, the default for
-  tensors on the card.  A CUDA tensor reaches the kernel or the call
-  raises; nothing falls back.
+* ``"cuda"`` — the hand-written kernels in :mod:`.kernel`, the default for
+  tensors on the card: bf16 at head dims 64, 128 and 256 on the tensor
+  cores, which take strided (B, H, S, D) views as they are; the rest on the
+  FMA kernel, which takes contiguous operands.  A CUDA tensor reaches its
+  kernel or the call raises; nothing falls back.
 * ``"torch"`` — the plain version in :mod:`.ref`, the default for tensors
   on the CPU, and what ``backend="torch"`` asks for on any device.
 
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels.cuda_build import BACKENDS, pick_backend
 
-from .kernel import flash_attention_cuda
+from .kernel import attention_route, flash_attention_cuda, strided_ok
 from .ref import attention_ref
 
 __all__ = ["attention", "pick_backend", "BACKENDS"]
@@ -41,6 +43,9 @@ def attention(
     if pick_backend(q, backend) == "torch":
         return attention_ref(q, k, v, scale=scale, causal=causal,
                              window=window, softcap=softcap)
-    return flash_attention_cuda(
-        q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
-        causal=causal, window=window, softcap=softcap)
+    if attention_route(q.dtype, q.shape[-1]) == "wgmma":
+        q, k, v = (t if strided_ok(t) else t.contiguous() for t in (q, k, v))
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                window=window, softcap=softcap)

@@ -146,7 +146,8 @@ def test_flash_decode_matches_reference(B, Hq, Hkv, S, d, splits, kvlen,
 
 
 def test_split_length_fills_the_card():
-    """Auto splits: B·Hkv·splits ≈ 4 CTAs per SM of an H100, whole tiles."""
+    """Auto splits: B·Hkv·splits ≈ 4 CTAs per SM of an H100, whole tiles,
+    of the live cache prefix."""
     cpu = torch.device("cpu")
     assert split_length(8, 4, 576, None, cpu) == 64  # 9 splits
     assert split_length(8, 4, 32768, None, cpu) == 1984  # 17 splits
@@ -155,6 +156,11 @@ def test_split_length_fills_the_card():
     assert split_length(1, 2, 77, 2, cpu) == 39
     with pytest.raises(ValueError):
         split_length(1, 1, 64, 0, cpu)
+    # the live prefix kv_len, not the horizon S, is what gets split
+    assert split_length(8, 4, 32768, None, cpu, kv_len=32768) == 1984
+    assert split_length(8, 4, 32768, None, cpu, kv_len=5000) == 320  # 16
+    assert split_length(8, 4, 576, None, cpu, kv_len=100) == 64  # 2 splits
+    assert split_length(2, 2, 256, 8, cpu, kv_len=100) == 32  # as given
 
 
 def test_flash_decode_refusals():

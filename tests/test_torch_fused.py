@@ -250,6 +250,7 @@ def test_cuda_kernel_loader_is_lazy():
 
     assert set(cuda_build.SOURCES) == {"fused_pull", "fused_push",
                                        "tocab_spmm", "flash_attention",
+                                       "flash_attention_wgmma",
                                        "flash_decode", "embedding_bag"}
     for name in cuda_build.SOURCES:
         src = cuda_build._source(name)
