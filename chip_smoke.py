@@ -17,7 +17,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    version on both block sizes, every block dense (thresholds ``(0, 0)``)
    and the ``"auto"`` dense bin (a ``block_ids`` subset at the bin's
    budget), ``(n,)`` and ``(n, 8)``, weighted and unweighted, and with a
-   NaN that only padding slots read.
+   NaN that only padding slots read.  Both families also on an edge-case
+   graph (three blocks of 65536 rows, the middle one with no edge, a hub
+   whose runs are longer than a warp chunk, slabs padded to no multiple of
+   a chunk or a step): every semiring for the push kernel, and
+   ``tocab_spmm`` over every block, the empty one included.
 3. The attention kernels against their plain versions:
    ``flash_attention`` over GQA groups 1, 4 and 8, causal and
    bidirectional, window 0 and 64, softcap 0 and 30, ragged lengths and
@@ -26,7 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel); ``flash_decode`` at kv_len = S, inside a split, on a split
    boundary and 1, splits auto / 1 / 8, softcap, MQA, one launch a call;
    its split-count invariance, its empty splits, and bit-identical repeats
-   at the serve shape and a 32768-slot cache; ``flash_attention`` at the
+   at the serve shape and a 32768-slot cache; an fp32 query beside a bf16
+   cache (a serving path with ``compute_dtype="float32"``) and a bf16
+   query beside an fp32 cache, one launch a call, at the bf16 tolerance; ``flash_attention`` at the
    8 × 2048 prefill in fp32 (FMA) and bf16 (tensor cores), ``flash_decode``
    in fp32 at a 32768-slot cache.  fp32 at rtol = atol = 2e-5, bf16 at one
    bf16 ulp relative plus two of the mean |entry|.
@@ -43,7 +49,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels' launch counts against zero (``tocab_spmm``: at least once per
    balanced ``gc-pull`` iteration and once for the SpMV).
 5. Each graph kernel timed at the main path's shapes beside its plain
-   version, its bound and a ``torch.sparse`` CSR product of the same matrix.
+   version, its bound and a ``torch.sparse`` CSR product of the same matrix;
+   ``fused_push`` and ``tocab_spmm`` also beside their earlier designs
+   (``previous_ms``), and each graph kernel beside the floors of
+   ``benchmarks/torch_graph_kernel_variants.py`` at its own sizes: random
+   reductions (push) or gathers (pull, SpMM) into a window-sized array,
+   and its slot streams read alone.
 6. LM serving, TinyLlama-1.1B at its published width (22 layers, d 2048,
    32/4 heads, random weights from ``SEED`` on the card): (a) fp32
    ``forward`` (flash_attention) against 256 ``serve_decode`` steps
@@ -82,6 +93,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -261,6 +273,28 @@ def check_close(what: str, out, ref, reduce: str):
     return float(diff.max()), atol, float(used.max())
 
 
+def edge_case_graph(seed: int, block: int = 65536):
+    """Three blocks of ``block`` rows: the middle one holds no edge in
+    either direction, source 5 pushes to 6000 destinations and destination
+    7 pulls from 6000 sources (runs of one compact id longer than a warp
+    chunk), over 200,000 random edges among the outer blocks."""
+    import numpy as np
+
+    from repro_torch.core import from_edges
+
+    rng = np.random.default_rng(seed)
+    n = 3 * block
+    outer = np.concatenate([np.arange(block), np.arange(2 * block, n)])
+    src = np.concatenate([rng.choice(outer, 200_000), np.full(6000, 5),
+                          rng.choice(outer, 6000)])
+    dst = np.concatenate([rng.choice(outer, 200_000), rng.choice(outer, 6000),
+                          np.full(6000, 7)])
+    keep = src != dst
+    return from_edges(n, src[keep], dst[keep],
+                      vals=rng.random(int(keep.sum()), dtype=np.float32),
+                      dedup=True)
+
+
 def phase_kernels(seed: int, log) -> dict:
     """Every kernel configuration against its plain version; returns the
     largest error seen per kernel."""
@@ -279,15 +313,21 @@ def phase_kernels(seed: int, log) -> dict:
     worst = {"fused_pull": 0.0, "fused_push": 0.0}
     tol_used = {"fused_pull": 0.0, "fused_push": 0.0}
     cases = 0
-    for block_size in (4096, 65536):
+    # B 4096: push's shared-memory window; 65536: its global one; the
+    # edge-case graph: an empty block, runs longer than a warp chunk, slabs
+    # padded to no multiple of a chunk or a step (pad_edges_to=1)
+    edge = edge_case_graph(seed)
+    for graph, block_size, pad in ((g, 4096, 128), (g, 65536, 128),
+                                   (edge, 65536, 1)):
         for direction in ("pull", "push"):
-            bg = build_blocked(g, block_size=block_size, direction=direction)
+            bg = build_blocked(graph, block_size=block_size,
+                               direction=direction, pad_edges_to=pad)
             fused, plain = ((fused_pull, fused_pull_ref)
                             if direction == "pull"
                             else (fused_push, fused_push_ref))
             name = f"fused_{direction}"
             for d in (None, 8):
-                shape = (g.n,) if d is None else (g.n, d)
+                shape = (graph.n,) if d is None else (graph.n, d)
                 pos = torch.from_numpy(
                     rng.random(shape, dtype=np.float32)).to(dev)
                 signed = torch.from_numpy(
@@ -304,7 +344,8 @@ def phase_kernels(seed: int, log) -> dict:
                             out = fused(bg, x, reduce, combine, eps)
                             ref = plain(bg, x, reduce, combine, eps)
                             torch.cuda.synchronize()
-                            what = (f"{name} B={block_size} d={d} {reduce} "
+                            what = (f"{name} B={block_size} pad={pad} "
+                                    f"n={graph.n} d={d} {reduce} "
                                     f"weighted={weighted} eps={eps is not None}")
                             err, atol, used = check_close(what, out, ref,
                                                           reduce)
@@ -378,6 +419,26 @@ def phase_spmm_kernel(seed: int, log) -> float:
                           block_ids=ids, local_budget=budget,
                           unweighted=unweighted)
             del bg
+
+    # the edge-case graph, every block dense: the empty middle block, a
+    # run longer than a warp chunk, a slab padded to no chunk multiple
+    edge = edge_case_graph(seed)
+    bg = build_blocked(edge, block_size=65536, bin_thresholds=(0.0, 0.0),
+                       pad_edges_to=1)
+    if int(bg.n_edges[1]) != 0:
+        raise AssertionError("the edge-case graph's middle block has edges")
+    for d in (None, 8):
+        shape = (edge.n,) if d is None else (edge.n, d)
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+        for unweighted in (False, True):
+            out = check(f"tocab_spmm edge-case graph d={d} "
+                        f"unweighted={unweighted}", x, bg,
+                        unweighted=unweighted)
+            if bool(out[1].any()):
+                raise AssertionError("tocab_spmm: the empty block's slab "
+                                     "is not 0")
+    bins["edge-case graph B=65536 (0, 0)"] = bg.num_blocks
+    del bg
 
     # a NaN that only padding slots read (window offset 0 of every block,
     # a vertex with no out-edges) must stay out of the slab
@@ -555,7 +616,20 @@ def phase_main(scale: int, seed: int, log) -> dict:
 # --------------------------------------------------------------------- #
 # phase 5: kernels at the main path's shapes
 # --------------------------------------------------------------------- #
-def phase_timing(main: dict, log) -> list:
+def graph_floors(floors, window: int, slabs, ops: int, kind: str) -> dict:
+    """The floors of a graph kernel at its own sizes, each measured alone
+    (``benchmarks/torch_graph_kernel_variants.py``'s probes): ``ops``
+    random reductions (``kind="red"``) or 4-byte gathers (``"gather"``)
+    into an array of ``window`` floats, without and with the L2 evict-last
+    hint, and its ``slabs`` (widx, cidx, mask) read once."""
+    probe = floors.red if kind == "red" else floors.gather
+    return {f"random_{kind}_ms": probe(window, ops, hint=False),
+            f"random_{kind}_l2_evict_last_ms": probe(window, ops, hint=True),
+            "random_ops": ops, "streams_ms": floors.streams(*slabs),
+            "stream_slots": slabs[0].numel()}
+
+
+def phase_timing(main: dict, log, floors) -> list:
     import torch
 
     from repro_torch.kernels.tocab_fused.kernel import (fused_pull_cuda,
@@ -586,17 +660,33 @@ def phase_timing(main: dict, log) -> list:
     del a_t
 
     records = []
-    for name, launch, plain, bg in (
-            ("fused_pull", fused_pull_cuda, fused_pull_ref, main["pull"]),
-            ("fused_push", fused_push_cuda, fused_push_ref, main["push"])):
+    for name, launch, plain, bg, kind in (
+            ("fused_pull", fused_pull_cuda, fused_pull_ref, main["pull"],
+             "gather"),
+            ("fused_push", fused_push_cuda, fused_push_ref, main["push"],
+             "red")):
         x2 = contrib[:, None]
 
-        def run():
+        def run(**kw):
             return launch(x2, bg.window_idx, bg.compact_idx, None,
                           bg.edge_mask, bg.id_map, block_size=bg.block_size,
-                          reduce="sum", epilogue=eps)
+                          reduce="sum", epilogue=eps, **kw)
 
         ms = cuda_ms(run, reps=10, warmup=2)
+        extra = {}
+        if name == "fused_push":  # beside its earlier design
+            extra["previous_ms"] = cuda_ms(lambda: run(previous=True),
+                                           reps=10, warmup=2)
+            extra["previous_source"] = (f"{SOURCES[name]} "
+                                        "(tocab_fused_push_previous)")
+            err_prev, _, _ = check_close(f"{name} previous at main shapes",
+                                         run(previous=True), plain(
+                                             bg, x2, "sum", UNWEIGHTED, eps),
+                                         "sum")
+            extra["previous_max_abs_err"] = err_prev
+        extra["floors"] = graph_floors(
+            floors, bg.block_size,
+            (bg.window_idx, bg.compact_idx, bg.edge_mask), m, kind)
         plain_ms = cuda_ms(lambda: plain(bg, x2, "sum", UNWEIGHTED, eps),
                            reps=3)
         out, ref = run(), plain(bg, x2, "sum", UNWEIGHTED, eps)
@@ -622,19 +712,21 @@ def phase_timing(main: dict, log) -> list:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
             "rtol": SUM_RTOL, "atol": atol, "tolerance_used": used,
+            **extra,
         })
         log(f"{name}: bytes={nbytes} "
             f"max_abs_err_vs_library={lib_err:.3g}")
-    records.append(time_spmm(main, contrib, log))
+    records.append(time_spmm(main, contrib, log, floors))
     time_balanced_bins(main, contrib)
     emit({"phase": "memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     return records
 
 
-def time_spmm(main: dict, contrib, log) -> dict:
+def time_spmm(main: dict, contrib, log, floors) -> dict:
     """``tocab_spmm`` on the balanced pull layout's dense bin at the main
-    path's shapes: PageRank contributions, unweighted."""
+    path's shapes: PageRank contributions, unweighted; beside its earlier
+    design and its floors."""
     import torch
 
     from repro_torch.core.balance import BIN_DENSE, _compact_budget
@@ -650,11 +742,16 @@ def time_spmm(main: dict, contrib, log) -> dict:
     args = (x2, bg.window_idx, bg.compact_idx, bg.edge_mask, None, ids_t)
     kw = dict(block_size=B, local_budget=budget)
     ms = cuda_ms(lambda: tocab_spmm_cuda(*args, **kw), reps=10, warmup=2)
+    previous_ms = cuda_ms(lambda: tocab_spmm_cuda(*args, previous=True,
+                                                  **kw), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: tocab_spmm_ref(*args, **kw), reps=3)
     out, ref = tocab_spmm_cuda(*args, **kw), tocab_spmm_ref(*args, **kw)
     torch.cuda.synchronize()
     err, atol, used = check_close("tocab_spmm at main shapes", out, ref,
                                   "sum")
+    err_prev, _, _ = check_close("tocab_spmm previous at main shapes",
+                                 tocab_spmm_cuda(*args, previous=True, **kw),
+                                 ref, "sum")
     del ref
 
     # library yardstick: the bin's blocks as one block-diagonal CSR matrix
@@ -664,6 +761,9 @@ def time_spmm(main: dict, contrib, log) -> dict:
     sel = torch.tensor(ids, dtype=torch.long, device="cuda")
     mask = bg.edge_mask[sel]
     edges = int(mask.sum())
+    spmm_floors = graph_floors(
+        floors, B, (bg.window_idx[sel], bg.compact_idx[sel], mask), edges,
+        "gather")
     offs = torch.arange(k, device="cuda")[:, None]
     rows = (bg.compact_idx[sel].long() + offs * budget)[mask]
     cols = (bg.window_idx[sel].long() + offs * B)[mask]
@@ -700,7 +800,9 @@ def time_spmm(main: dict, contrib, log) -> dict:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "previous_ms": previous_ms,
+        "previous_source": f"{SOURCES['tocab_spmm']} (tocab_spmm_previous)",
+        "previous_max_abs_err": err_prev, "floors": spmm_floors,
         "rtol": SUM_RTOL, "atol": atol, "tolerance_used": used,
         "dense_blocks": list(ids), "edges": edges, "local_budget": budget,
     }
@@ -729,15 +831,15 @@ def time_balanced_bins(main: dict, contrib):
 # --------------------------------------------------------------------- #
 # phase 3: the attention kernels vs their plain versions
 # --------------------------------------------------------------------- #
-def tol_share(out, ref):
+def tol_share(out, ref, bf16: bool = False):
     """Max |out - ref|, the worst entry's share of ``atol + rtol·|ref|``,
     and that (rtol, atol): :data:`FP32_KERNEL_TOL` for an fp32 ``out``,
-    :data:`BF16_RTOL` and :data:`BF16_ATOL_OF_MEAN` of mean |ref| for bf16.
-    All in fp32."""
+    :data:`BF16_RTOL` and :data:`BF16_ATOL_OF_MEAN` of mean |ref| for bf16
+    (or when ``bf16`` says the inputs were).  All in fp32."""
     import torch
 
     ref = ref.float()
-    if out.dtype == torch.float32:
+    if out.dtype == torch.float32 and not bf16:
         rtol = atol = FP32_KERNEL_TOL
     else:
         rtol, atol = BF16_RTOL, BF16_ATOL_OF_MEAN * float(ref.abs().mean())
@@ -772,16 +874,17 @@ def phase_attention_kernels(seed: int, log) -> dict:
     names = ("flash_attention", "flash_decode")
     worst = {n: {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
              for n in names}
+    worst["flash_decode"]["mixed"] = (0.0, 0.0)
     cases = {n: 0 for n in names}
 
-    def record(name, what, out, ref):
-        err, share, rtol, atol = tol_share(out, ref)
+    def record(name, what, out, ref, mixed=False):
+        err, share, rtol, atol = tol_share(out, ref, bf16=mixed)
         log(f"{name} {what}: max_abs_err={err:.3g} rtol={rtol:.3g} "
             f"atol={atol:.3g} tolerance_used={share:.3g}")
         if not share <= 1.0:  # NaN fails too
             raise AssertionError(f"{name} {what}: max_abs_err={err} is "
                                  f"{share:.3g}× the tolerance")
-        dt = str(out.dtype)[6:]
+        dt = "mixed" if mixed else str(out.dtype)[6:]
         w = worst[name][dt]
         worst[name][dt] = (max(w[0], err), max(w[1], share))
         cases[name] += 1
@@ -848,6 +951,33 @@ def phase_attention_kernels(seed: int, log) -> dict:
                         record("flash_decode", f"{dtype} q={tuple(q.shape)} "
                                f"kv={tuple(k.shape)} splits={splits} {kw}",
                                out, ref)
+
+    # a query whose dtype differs from the cache's: fp32 beside bf16 (a
+    # serving path with compute_dtype="float32"; the tensor-core route
+    # splits q into two bf16 halves) and bf16 beside fp32.  Output in q's
+    # dtype, one launch a call, at the bf16 tolerance (the cache or the
+    # query holds bf16 values)
+    for q_dtype, c_dtype in ((torch.float32, torch.bfloat16),
+                             (torch.bfloat16, torch.float32)):
+        for B, Hq, Hkv, S, D in dshapes:
+            q = rand(B, Hq, 1, D, dtype=q_dtype)
+            k, v = (rand(B, Hkv, S, D, dtype=c_dtype) for _ in range(2))
+            for kv_len in sorted({S, S // 2 + 1, 1}):
+                for cap in (0.0, 30.0):
+                    kw = dict(kv_len=kv_len, softcap=cap)
+                    n0 = cuda_build.launches["flash_decode"]
+                    out = flash_decode(q, k, v, **kw)
+                    if cuda_build.launches["flash_decode"] != n0 + 1:
+                        raise AssertionError("flash_decode: not one launch "
+                                             "a call")
+                    if out.dtype != q_dtype:
+                        raise AssertionError(f"flash_decode: output "
+                                             f"{out.dtype}, q {q_dtype}")
+                    ref = flash_decode_ref(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    record("flash_decode", f"q {q_dtype} cache {c_dtype} "
+                           f"q={tuple(q.shape)} kv={tuple(k.shape)} {kw}",
+                           out, ref, mixed=True)
 
     # the main path's shapes in fp32: TinyLlama's prefill of 8 × 2048 tokens
     # (32 query / 4 KV heads of 64, causal) and a 32768-slot decode cache
@@ -927,7 +1057,8 @@ def phase_attention_kernels(seed: int, log) -> dict:
           "tolerance": {"float32": {"rtol": FP32_KERNEL_TOL,
                                     "atol": FP32_KERNEL_TOL},
                         "bfloat16": {"rtol": BF16_RTOL,
-                                     "atol_of_mean_abs": BF16_ATOL_OF_MEAN}},
+                                     "atol_of_mean_abs": BF16_ATOL_OF_MEAN},
+                        "mixed": "bfloat16's"},
           "max_abs_err": {n: {dt: e for dt, (e, _) in w.items()}
                           for n, w in worst.items()},
           "tolerance_used": {n: {dt: u for dt, (_, u) in w.items()}
@@ -1579,12 +1710,18 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
+    from benchmarks.torch_graph_kernel_variants import (
+        PROBE_SRC, Floors, finish_build, start_build)
     from repro_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
+    probe_dir = tempfile.TemporaryDirectory()
+    probe = start_build({"floor_probes": PROBE_SRC}, Path(probe_dir.name))
     logs = cuda_build.build()
+    floors = Floors(finish_build(probe)["floor_probes"])
+    probe_dir.cleanup()  # the library stays loaded
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs)})
+          "built": sorted(logs) + ["floor_probes"]})
     for nm, text in logs.items():
         log(f"--- nvcc {nm} ---\n{text}")
 
@@ -1592,7 +1729,7 @@ def main(argv=None) -> int:
     phase_spmm_kernel(SEED, log)
     phase_attention_kernels(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
-    records = phase_timing(main_state, log)
+    records = phase_timing(main_state, log, floors)
     del main_state
     torch.cuda.empty_cache()
     lm = phase_lm(SEED, log)

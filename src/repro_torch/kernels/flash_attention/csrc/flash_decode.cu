@@ -9,14 +9,17 @@
 // splits that the reference leaves to XLA outside the Pallas kernel.
 //
 // Computes, for q (B, Hkv, G, D) (G = Hq/Hkv query rows per KV head), k
-// and v (B, Hkv, S, D), all fp32 or all bf16, split si covering cache
+// and v (B, Hkv, S, D), the cache fp32 or bf16 and q either, split si
+// covering cache
 // slots [si*split, min((si+1)*split, kv_len, S)):
 //   s[g, j] = cap(scale * q[b, hk, g] . k[b, hk, j])
 //   m[g] = max_j s[g, j],  l[g] = sum_j exp(s[g, j] - m[g]),
 //   o[g] = sum_j exp(s[g, j] - m[g]) v[b, hk, j]
 // all fp32, with cap(x) = softcap * tanh(x / softcap) when softcap > 0;
 // then out[g] = sum_si e^(m_si - M) o_si / max(sum_si e^(m_si - M) l_si,
-// 1e-30) with M = max_si m_si, in q's dtype.  Slots at or past kv_len add
+// 1e-30) with M = max_si m_si, in q's dtype (a serving path may keep an
+// fp32 query beside a bf16 cache, as the reference does).  Slots at or
+// past kv_len add
 // exactly 0; a split with none below kv_len gives m = -1e30, l = 0, o = 0.
 // kv_len is a runtime argument: a new decode position launches the same
 // code.
@@ -35,7 +38,10 @@
 //     in rows 0-7 and P_lo = bf16(P - P_hi) in rows 8-15, so that the
 //     padding rows carry the low half for free and P is held to 2^-16;
 //     V's fragments from ldmatrix.trans.  q's rows come straight from
-//     memory in bf16 (no cast on the host); scale applies to the fp32 sum.
+//     memory (no cast on the host): a bf16 q as it is, an fp32 q split the
+//     same way, Q_hi in rows 0-7 and Q_lo in rows 8-15 of the Q K^T
+//     product, whose two halves of each score are added (q held to 2^-16);
+//     scale applies to the fp32 sum.
 //   - fp32 caches and D < 64: FP32 FMA.  LPR lanes share a slot's row,
 //     a warp step covers 32/LPR slots; scores are reduced over the row's
 //     lanes with shuffles; each group of lanes that shares a slot row keeps
@@ -143,12 +149,12 @@ struct SplitArgs {
 // this (b, hk, chunk) to finish merges every split, in split order, and
 // writes out.  It learns that it is last from an atomic ticket, which it
 // resets to 0 for the next launch.
-template <typename T, int D, int GM>
+template <int D, int GM>
 __device__ __forceinline__ void finish_split(const float* wo, int wstride,
                                              const float* wm,
                                              const float* wl,
-                                             const SplitArgs& a, T* out,
-                                             int* is_last) {
+                                             const SplitArgs& a, void* out,
+                                             bool out_f32, int* is_last) {
   const int tid = threadIdx.x;
   const int64_t part = (a.bh * a.splits + a.si) * a.G + a.g0;
   for (int e = tid; e < a.Gc * D; e += kThreads) {
@@ -197,8 +203,12 @@ __device__ __forceinline__ void finish_split(const float* wo, int wstride,
       acc = acc * f0 + os * f1;
       mx = mn;
     }
-    out[(a.bh * a.G + a.g0) * D + e] =
-        static_cast<T>(acc / fmaxf(den, 1e-30f));
+    const int64_t at = (a.bh * a.G + a.g0) * D + e;
+    const float y = acc / fmaxf(den, 1e-30f);
+    if (out_f32)
+      static_cast<float*>(out)[at] = y;
+    else
+      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(y);
   }
 }
 
@@ -207,11 +217,11 @@ __device__ __forceinline__ void finish_split(const float* wo, int wstride,
 // uncapped scores pay nothing for it).
 template <typename T, int D, int GM, bool CAP>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_kernel(const void* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, float* __restrict__ m_part,
               float* __restrict__ l_part, float* __restrict__ o_part,
-              T* __restrict__ out, unsigned int* __restrict__ tickets,
-              int G, int S, int kv_len, int split, float scale,
+              void* __restrict__ out, unsigned int* __restrict__ tickets,
+              int q_f32, int G, int S, int kv_len, int split, float scale,
               float softcap) {
   using P = Plan<T, D>;
   constexpr int EPL = P::EPL, LPR = P::LPR, U = P::U, VPL = P::VPL;
@@ -238,8 +248,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rg = lane / LPR, cl = lane % LPR;
 
   for (int e = tid; e < Gc * D; e += kThreads) {
-    const T x = q[(bh * G + g0) * D + e];
-    qs[e] = static_cast<float>(x) * scale;
+    const int64_t at = (bh * G + g0) * D + e;
+    qs[e] = (q_f32 ? static_cast<const float*>(q)[at]
+                   : __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(q)[at])) *
+            scale;
   }
   __syncthreads();
 
@@ -408,10 +421,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  finish_split<T, D, GM>(wo, kRingFloats, wm, wl,
-                         SplitArgs{m_part, l_part, o_part, tickets, G, g0, Gc,
-                                   bh, si, splits},
-                         out, &is_last);
+  finish_split<D, GM>(wo, kRingFloats, wm, wl,
+                      SplitArgs{m_part, l_part, o_part, tickets, G, g0, Gc,
+                                bh, si, splits},
+                      out, q_f32, &is_last);
 }
 
 // ---- bf16, D >= 64: scores and P V on the tensor cores (mma.sync) ------ //
@@ -458,16 +471,17 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
 
 // The rows of the m16n8k16 products: query rows g (0..7) of the CTA's
 // chunk; rows 8..15 of the A operand carry P's low half (P = P_hi + P_lo,
-// both bf16) in the P V product, and zeros in the Q K^T product.
+// both bf16) in the P V product, and in the Q K^T product q's low half
+// when q is fp32 (Q = Q_hi + Q_lo), zeros when it is bf16.
 template <int D, bool CAP>
 __global__ void __launch_bounds__(kThreads)
-decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+decode_mma_kernel(const void* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   float* __restrict__ m_part, float* __restrict__ l_part,
-                  float* __restrict__ o_part, __nv_bfloat16* __restrict__ out,
-                  unsigned int* __restrict__ tickets, int G, int S,
-                  int kv_len, int split, float scale, float softcap) {
+                  float* __restrict__ o_part, void* __restrict__ out,
+                  unsigned int* __restrict__ tickets, int q_f32, int G,
+                  int S, int kv_len, int split, float scale, float softcap) {
   constexpr int GM = 8;
   constexpr int kChunks = kMmaSlots * D / 8;  // 16-byte chunks of K (or V)
   constexpr int kStageChunks = 2 * kChunks;   // K then V
@@ -486,16 +500,29 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, t = lane & 3;  // fragment row, column pair
 
-  // Q's A fragments (rows 8..15 zero), straight from q in bf16
-  uint32_t qa[D / 16][2];
+  // Q's A fragments, straight from q: rows 0..7 Q_hi, rows 8..15 Q_lo
+  // (zero for a bf16 q, which is exact as it is)
+  uint32_t qa[D / 16][2], ql[D / 16][2];
   {
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        q + (bh * G + g0 + gr) * D);
+    const int64_t at = (bh * G + g0 + gr) * D;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      qa[ks][0] = gr < Gc ? qrow[8 * ks + t] : 0u;
-      qa[ks][1] = gr < Gc ? qrow[8 * ks + 4 + t] : 0u;
-    }
+    for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 16 * ks + 8 * h + 2 * t;
+        qa[ks][h] = ql[ks][h] = 0u;
+        if (gr >= Gc) continue;
+        if (q_f32) {
+          const float* qf = static_cast<const float*>(q) + at + col;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(qf[0], qf[1]);
+          const float2 hf = __bfloat1622float2(hi);
+          qa[ks][h] = *reinterpret_cast<const uint32_t*>(&hi);
+          ql[ks][h] = pack2(qf[0] - hf.x, qf[1] - hf.y);
+        } else {
+          qa[ks][h] = *reinterpret_cast<const uint32_t*>(
+              static_cast<const __nv_bfloat16*>(q) + at + col);
+        }
+      }
   }
 
   uint4* ring = ring_all + warp * kMmaStages * kStageChunks;
@@ -545,18 +572,19 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int mi = lane >> 3;  // the matrix this lane addresses
       ldsm_x4(r, kt + chunk_at<D>(8 * (mi >> 1) + (lane & 7),
                                   2 * ks + (mi & 1)));
-      const uint32_t a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+      const uint32_t a[4] = {qa[ks][0], ql[ks][0], qa[ks][1], ql[ks][1]};
       mma_bf16(sc[0], a, r[0], r[1]);
       mma_bf16(sc[1], a, r[2], r[3]);
     }
 
-    // row gr's scores: slots base + 8n + 2t + e, in sc[n][e] (e < 2)
+    // row gr's scores: slots base + 8n + 2t + e, Q_hi's part in sc[n][e]
+    // (e < 2) and Q_lo's in sc[n][e + 2] (exactly 0 for a bf16 q)
     float x[4];
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float y = sc[n][e] * scale;
+        float y = (sc[n][e] + sc[n][e + 2]) * scale;
         if (CAP) y = softcap * tanhf(y / softcap);
         x[2 * n + e] = base + 8 * n + 2 * t + e < s_hi ? y : kNegInf;
       }
@@ -616,10 +644,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     wl[warp * GM + gr] = l;
   }
   __syncthreads();
-  finish_split<__nv_bfloat16, D, GM>(
+  finish_split<D, GM>(
       reinterpret_cast<const float*>(ring_all), kRingFloats, wm, wl,
       SplitArgs{m_part, l_part, o_part, tickets, G, g0, Gc, bh, si, splits},
-      out, &is_last);
+      out, q_f32, &is_last);
 }
 
 template <int D>
@@ -630,25 +658,25 @@ constexpr int mma_smem() {
 template <typename T, int D, int GM>
 cudaError_t launch(const void* q, const void* k, const void* v, float* m,
                    float* l, float* o, void* out, unsigned int* tickets,
-                   int B, int Hkv, int G, int S, int kv_len, int splits,
-                   int split, float scale, float softcap, cudaStream_t st) {
+                   int q_f32, int B, int Hkv, int G, int S, int kv_len,
+                   int splits, int split, float scale, float softcap,
+                   cudaStream_t st) {
   const int chunks = (G + GM - 1) / GM;
   if ((int64_t)Hkv * chunks > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid(splits, Hkv * chunks, B);
   auto kernel = softcap > 0.0f ? decode_kernel<T, D, GM, true>
                                : decode_kernel<T, D, GM, false>;
   kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), m, l, o, static_cast<T*>(out), tickets, G, S,
-      kv_len, split, scale, softcap);
+      q, static_cast<const T*>(k), static_cast<const T*>(v), m, l, o, out,
+      tickets, q_f32, G, S, kv_len, split, scale, softcap);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, float* m,
                        float* l, float* o, void* out, unsigned int* tickets,
-                       int B, int Hkv, int G, int S, int kv_len, int splits,
-                       int split, float scale, float softcap,
+                       int q_f32, int B, int Hkv, int G, int S, int kv_len,
+                       int splits, int split, float scale, float softcap,
                        cudaStream_t st) {
   using bf16 = __nv_bfloat16;
   const int chunks = (G + 7) / 8;
@@ -669,22 +697,22 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, float* m,
   auto kernel = softcap > 0.0f ? decode_mma_kernel<D, true>
                                : decode_mma_kernel<D, false>;
   kernel<<<grid, kThreads, mma_smem<D>(), st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), m, l, o, static_cast<bf16*>(out), tickets,
-      G, S, kv_len, split, scale, softcap);
+      q, static_cast<const bf16*>(k), static_cast<const bf16*>(v), m, l, o,
+      out, tickets, q_f32, G, S, kv_len, split, scale, softcap);
   return cudaGetLastError();
 }
 
-#define FD_ARGS q, k, v, m, l, o, out, tickets, B, Hkv, G, S, kv_len, splits, \
-                split, scale, softcap, st
+#define FD_ARGS q, k, v, m, l, o, out, tickets, q_f32, B, Hkv, G, S, kv_len, \
+                splits, split, scale, softcap, st
 #define FD_SCALAR(T, DD)                                                      \
   case DD:                                                                    \
     return G <= 2 ? launch<T, DD, 2>(FD_ARGS) : launch<T, DD, 8>(FD_ARGS);
 
-// fp32: the scalar kernel at every head dim; bf16: the tensor-core kernel
-// from D = 64 up, the scalar one below
-cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v,
-                     float* m, float* l, float* o, void* out,
+// fp32 cache: the scalar kernel at every head dim; bf16 cache: the
+// tensor-core kernel from D = 64 up, the scalar one below; q of either
+// dtype on every route
+cudaError_t dispatch(int dtype, int q_f32, const void* q, const void* k,
+                     const void* v, float* m, float* l, float* o, void* out,
                      unsigned int* tickets, int B, int Hkv, int G, int S,
                      int D, int kv_len, int splits, int split, float scale,
                      float softcap, cudaStream_t st) {
@@ -722,8 +750,9 @@ extern "C" int flash_decode_supports(int G, int D) {
          (D == 8 || D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
 }
 
-// q (B, Hkv, G, D), k and v (B, Hkv, S, D), all contiguous, of dtype 0:
-// fp32 or 1: bf16 alike, with 16-byte aligned bases.  ws holds the
+// q (B, Hkv, G, D) of q_dtype and k and v (B, Hkv, S, D) of dtype (0:
+// fp32, 1: bf16; out takes q's), all contiguous, with 16-byte aligned
+// bases.  ws holds the
 // partials, fp32: m and l (B, Hkv, splits, G) then o (B, Hkv, splits, G,
 // D); every split of the grid is written.  When out is not null (then
 // splits = ceil(min(kv_len, S) / split)), the same launch merges them into
@@ -733,20 +762,22 @@ extern "C" int flash_decode_supports(int G, int D) {
 // on success).
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             float* ws, void* out, unsigned int* tickets,
-                            int dtype, int B, int Hkv, int G, int S, int D,
+                            int dtype, int q_dtype, int B, int Hkv, int G,
+                            int S, int D,
                             int kv_len, int splits, int split, float scale,
                             float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Hkv < 1 || B > 65535 || S < 1 || kv_len < 1 || splits < 1 ||
-      split < 1 || !flash_decode_supports(G, D) ||
+      split < 1 || !flash_decode_supports(G, D) || q_dtype < 0 ||
+      q_dtype > 1 ||
       (out != nullptr && tickets == nullptr))
     return cudaErrorInvalidValue;
   const int64_t rows = (int64_t)B * Hkv * G;
   float* m = ws;
   float* l = ws + rows * splits;
   float* o = ws + 2 * rows * splits;
-  return dispatch(dtype, q, k, v, m, l, o, out, tickets, B, Hkv, G, S, D,
-                  kv_len, splits, split, scale, softcap, st);
+  return dispatch(dtype, q_dtype == 0, q, k, v, m, l, o, out, tickets, B,
+                  Hkv, G, S, D, kv_len, splits, split, scale, softcap, st);
 }
 
 extern "C" const char* flash_decode_error(int code) {

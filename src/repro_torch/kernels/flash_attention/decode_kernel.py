@@ -7,8 +7,10 @@ cut into splits: the kernel's grid covers (split, KV head, request), each
 CTA reduces its split to partial ``(m, l, acc)`` in fp32, and the last CTA
 of each KV head to finish merges them with the exact log-sum-exp combine
 (the reference leaves that merge to XLA, outside the Pallas kernel).  A
-call is one launch: q is read in its own dtype by the kernel, and the
-splits are planned from the live ``kv_len``, not the allocated horizon.
+call is one launch: q is read in its own dtype by the kernel, which may
+differ from the cache's (an fp32 query beside a bf16 cache, as a serving
+path with ``compute_dtype="float32"`` has it), and the splits are planned
+from the live ``kv_len``, not the allocated horizon.
 ``kv_len`` is a runtime argument of the kernel: a new decode position
 launches the same build.
 
@@ -45,7 +47,7 @@ _CTAS_PER_SM = 4
 _P, _I32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_decode": ([_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                      _I32, _I32, _I32, _I32, _F, _F, _P], _I32),
+                      _I32, _I32, _I32, _I32, _I32, _F, _F, _P], _I32),
     "flash_decode_error": ([_I32], ctypes.c_char_p),
 }
 
@@ -120,12 +122,10 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
     if not q.is_cuda:
         raise ValueError("flash_decode: q must be a CUDA tensor")
     B, Hq, Hkv, S, D, kv_len = _check_decode(q, k, v, kv_len)
-    if k.dtype not in DTYPES:
-        raise TypeError(f"flash_decode takes a {sorted(map(str, DTYPES))} "
-                        f"cache, got {k.dtype}")
-    if q.dtype != k.dtype:
-        raise TypeError(f"flash_decode: q has dtype {q.dtype}, the cache "
-                        f"{k.dtype}; the kernel takes them alike")
+    for t, what in ((k, "cache"), (q, "q")):
+        if t.dtype not in DTYPES:
+            raise TypeError(f"flash_decode takes a {sorted(map(str, DTYPES))}"
+                            f" {what}, got {t.dtype}")
     for t, what in ((k, "k"), (v, "v")):
         check_operand(t, what, k.dtype, q.device)
     q = q.contiguous()  # (B, Hq, 1, D) from (B, 1, Hq, D): already is
@@ -151,7 +151,8 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(),
             None if out is None else out.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
-            DTYPES[k.dtype], B, Hkv, G, S, D, kv_len, splits, split,
+            DTYPES[k.dtype], DTYPES[q.dtype], B, Hkv, G, S, D, kv_len,
+            splits, split,
             float(scale), float(softcap), stream)
     cuda_build.check_launch(lib, "flash_decode", rc)
     cuda_build.launches["flash_decode"] += 1
@@ -165,8 +166,10 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
 def flash_decode_cuda(q, k, v, *, scale: float, kv_len: int, split: int,
                       softcap: float) -> torch.Tensor:
     """Launch the kernel, which merges its splits itself (one launch):
-    ``q`` (B, Hq, 1, D) and ``k``/``v`` (B, Hkv, S, D), all fp32 or all
-    bf16, on the card; splits of ``split`` slots over the first ``kv_len``.
+    ``q`` (B, Hq, 1, D) and ``k``/``v`` (B, Hkv, S, D) on the card, the
+    cache fp32 or bf16 and q either (an fp32 q beside a bf16 cache is held
+    to 2⁻¹⁶ on the tensor cores, split into two bf16 halves); splits of
+    ``split`` slots over the first ``kv_len``.
     Returns (B, Hq, 1, D) in ``q.dtype``, as :func:`flash_decode_ref`, the
     same bits on every call."""
     return _launch(q, k, v, scale=scale, kv_len=kv_len, split=split,

@@ -6,40 +6,81 @@
 // Computes out[b*B + widx[b,s]] (+|min|max)= values[id_map[b, cidx[b,s]]]
 // (* ev[b,s]) over every real edge slot s of every TOCAB block b (row
 // blocking: block b owns the disjoint destination window [b*B, b*B+B)),
-// then, if asked, out = out*mul + add.
+// then, if asked, out = out*mul + add.  A slot whose mask is clear, whose
+// cidx lies outside [0, local_budget) or whose id_map entry is padding
+// (>= n) adds nothing.
 //
 // Design.  The Pallas kernel gathers the block's distinct sources once into
 // VMEM (block_contrib) and scatters into a VMEM copy of the block's window.
-// Here each edge reads its source value straight through id_map (edges are
-// sorted by cidx, so a warp's lanes mostly share a source and the read is a
-// broadcast), and the scatter goes to
+// Here the scatter goes to
 //   * shared memory, when the window (B*d*4 bytes) fits kSmemWindowBytes:
 //     one CTA per block accumulates its window with shared-memory atomics
 //     and writes it out once, epilogue applied on the way;
-//   * global memory otherwise: CTAs take contiguous edge chunks, the chunk
-//     fastest-varying in the grid, so the CTAs in flight hit one block's
-//     window, which stays in L2 (sized to half the L2 by choose_block_size);
-//     the wrapper fills out with the identity, and a second small kernel
+//   * global memory otherwise, where the window (26 MB at the Graph500
+//     scale-24 layout) stays in L2 and every real edge would be one
+//     reduction into it.  A warp's 32 slots hold ~32 distinct destinations,
+//     so a warp cannot combine them; but ~46 % of a block's edges go to
+//     rows of in-degree > 1000, and the reductions of such a hub row queue
+//     on one L2 address.  So for d = 1 (fused_push_combine) each SM runs
+//     one persistent CTA of kCombineThreads threads that keeps a table of
+//     kTable (destination, partial) pairs in shared memory over all its
+//     chunks of a block: an edge's message goes to the slot its destination
+//     hashes to — claimed by the first destination to reach it (atomicCAS),
+//     reduced there with shared-memory atomics — or, when another
+//     destination holds the slot, straight to L2 as a no-return RED.  The
+//     table is flushed (one RED per held destination) when the CTA moves
+//     to another block and at its end.  Hubs claim slots early and often:
+//     at scale 24 the table takes ~24-30 % of the edges, and those are the
+//     ones that would queue.  For d > 1 (fused_push_stream) warps walk
+//     chunks of kWarpSlots slots with no table.  Both walk their chunks
+//     block-major with a static stride, so the CTAs in flight scatter into
+//     one block's window, and batch kSteps 32-slot steps a warp: each
+//     step's mask, then its cidx/widx where the mask is set (a padding slot
+//     reads its mask only; issuing all the masks first measured slower),
+//     then all steps' id_map reads, then their value reads (edges are
+//     sorted by cidx: a few broadcast addresses a step, through L1), then
+//     the reductions.  Cache policy: the slot
+//     streams are read with an L2 evict-first hint and no L1 allocation,
+//     the reductions into the window carry an L2 evict-last hint.  The
+//     wrapper fills out with the identity, and a second small kernel
 //     applies the epilogue.
 // Windows are disjoint, so a block never touches another block's rows: the
 // order blocks are visited in cannot change results.
 //
 // Bound.  Bytes: the widx/cidx/ev/mask streams (13 B per edge slot, 9 B
 // unweighted), one id_map read and one value read per distinct source of a
-// block, and the window rows of out — one write each on the shared path,
-// an atomic read-modify-write per edge (in L2) on the global path.
-// Memory bound, as the pull kernel.
+// block, and the window rows of out.  What sets the pace on the global
+// path is the reductions L2 retires: random fp32 REDs into a 26 MB array
+// retire at ~91 G/s on an H100 (2.9 ms for scale 24's 263 M edges; a RED
+// that misses L2 costs a 32-byte sector read and write in device memory),
+// fewer where hub rows queue.  benchmarks/torch_graph_kernel_variants.py
+// measures these floors and the design's variants.
 //
-// Determinism.  Float atomics add in an order that changes from run to run,
-// so the sum semiring is not bit-reproducible; min/max are exact.
+// The earlier design (one CTA per 4096-slot chunk, one slot at a time per
+// thread, no cache hints) is kept as tocab_fused_push_previous, a yardstick
+// that chip_smoke.py and benchmarks/torch_graph_kernel_variants.py time
+// beside this one; no path of the package calls it.
+//
+// Determinism.  Float atomics add in an order that changes from run to
+// run, so the sum semiring is not bit-reproducible; min/max are exact.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kChunkSlots = 4096;  // edge slots per CTA, global path
+constexpr int kWarps = kThreads / 32;
+constexpr int kSteps = 4;               // U: 32-slot steps a warp batches
+constexpr int64_t kWarpSlots = 2048;    // slots of one warp chunk
+constexpr int64_t kChunkSlots = 4096;   // previous design: slots per CTA
 constexpr int64_t kSmemWindowBytes = 200 * 1024;
+// d = 1 on the global path: combine equal destinations in a shared-memory
+// table before they reach L2 (fused_push_combine)
+constexpr bool kCombine = true;
+constexpr int kTable = 28672;           // destinations a table holds (224 KB)
+constexpr int kCombineThreads = 1024;   // a combining CTA's threads
+constexpr int kCombineWarps = kCombineThreads / 32;
+constexpr int64_t kCtaSlots = 1 << 16;  // slots of one CTA chunk
 
 enum Reduce { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -65,8 +106,226 @@ __device__ __forceinline__ void atomic_reduce(float* p, float v) {
   }
 }
 
-// One edge slot: reduce its message into `win` (the block's window, shared
-// or global).
+// ---- L2 cache policies and the loads and reductions that carry them ---- //
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ int ld_stream(const int32_t* p, uint64_t pol) {
+  int v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::cache_hint.s32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ float ld_stream(const float* p, uint64_t pol) {
+  float v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ int ld_stream(const uint8_t* p, uint64_t pol) {
+  uint32_t v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::cache_hint.u8 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return static_cast<int>(v);
+}
+
+// A no-return reduction into global memory with an L2 cache policy.
+template <int R>
+__device__ __forceinline__ void red_global(float* p, float v, uint64_t pol) {
+  if (R == kSum) {
+    asm volatile("red.global.add.L2::cache_hint.f32 [%0], %1, %2;"
+                 :: "l"(p), "f"(v), "l"(pol) : "memory");
+  } else {
+    // min: a non-negative value as s32 min, a negative one as u32 max;
+    // max the other way round
+    const int i = __float_as_int(v);
+    if (R == kMin && i >= 0)
+      asm volatile("red.global.min.L2::cache_hint.s32 [%0], %1, %2;"
+                   :: "l"(p), "r"(i), "l"(pol) : "memory");
+    else if (R == kMin)
+      asm volatile("red.global.max.L2::cache_hint.u32 [%0], %1, %2;"
+                   :: "l"(p), "r"(i), "l"(pol) : "memory");
+    else if (i >= 0)
+      asm volatile("red.global.max.L2::cache_hint.s32 [%0], %1, %2;"
+                   :: "l"(p), "r"(i), "l"(pol) : "memory");
+    else
+      asm volatile("red.global.min.L2::cache_hint.u32 [%0], %1, %2;"
+                   :: "l"(p), "r"(i), "l"(pol) : "memory");
+  }
+}
+
+// The lane's slots of kSteps 32-slot steps from `slot` (slot + 32 u), step
+// by step: the mask, then cidx/widx (and ev) where it is set — a padding
+// slot reads its mask only — and then the source rows through id_map.
+// src = n where a slot carries no message (mask clear, cidx out of range,
+// or a padded id_map entry).
+template <bool W>
+__device__ __forceinline__ void load_steps(
+    const int32_t* __restrict__ widx, const int32_t* __restrict__ cidx,
+    const float* __restrict__ ev, const uint8_t* __restrict__ mask,
+    const int32_t* __restrict__ ids, int64_t n, int64_t local_budget,
+    int64_t row, int64_t slot, int64_t s_end, uint64_t pol_stream,
+    int (&w)[kSteps], float (&e)[kSteps], int64_t (&src)[kSteps]) {
+  int key[kSteps];
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int64_t s = slot + u * 32;
+    key[u] = -1;
+    w[u] = 0;
+    e[u] = 1.0f;
+    if (s < s_end && ld_stream(mask + row + s, pol_stream)) {
+      const int k = ld_stream(cidx + row + s, pol_stream);
+      w[u] = ld_stream(widx + row + s, pol_stream);
+      if (W) e[u] = ld_stream(ev + row + s, pol_stream);
+      if (k >= 0 && k < local_budget) key[u] = k;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u)
+    src[u] = key[u] >= 0 ? __ldg(ids + key[u]) : n;
+}
+
+// ---- global window: persistent, batched, cache-hinted ------------------ //
+// Work item t (a warp chunk) -> (block b, chunk c), block-major.
+template <int R, bool W>
+__global__ void __launch_bounds__(kThreads)
+fused_push_stream(const float* __restrict__ values,
+                  const int32_t* __restrict__ widx,
+                  const int32_t* __restrict__ cidx,
+                  const float* __restrict__ ev,
+                  const uint8_t* __restrict__ mask,
+                  const int32_t* __restrict__ id_map, float* out, int64_t n,
+                  int64_t edge_budget, int64_t local_budget,
+                  int64_t block_size, int d, int64_t chunks_per_block,
+                  int64_t total) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * kWarps;
+  const uint64_t pol_stream = policy_evict_first();
+  const uint64_t pol_window = policy_evict_last();
+  for (int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       t < total; t += stride) {
+    const int64_t b = t / chunks_per_block;
+    const int64_t s0 = (t - b * chunks_per_block) * kWarpSlots;
+    const int64_t s_end =
+        s0 + kWarpSlots < edge_budget ? s0 + kWarpSlots : edge_budget;
+    const int64_t row = b * edge_budget;
+    float* win = out + b * block_size * d;
+    const int32_t* ids = id_map + b * local_budget;
+    for (int64_t base = s0; base < s_end; base += 32 * kSteps) {
+      int w[kSteps];
+      float e[kSteps];
+      int64_t src[kSteps];
+      load_steps<W>(widx, cidx, ev, mask, ids, n, local_budget, row,
+                    base + lane, s_end, pol_stream, w, e, src);
+      for (int f = 0; f < d; ++f) {
+        float v[kSteps];
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u)
+          v[u] = src[u] < n ? __ldg(values + src[u] * d + f) : 0.0f;
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u)
+          if (src[u] < n)
+            red_global<R>(win + (int64_t)w[u] * d + f, W ? v[u] * e[u] : v[u],
+                          pol_window);
+      }
+    }
+  }
+}
+
+// ---- global window, d = 1: combining equal destinations per CTA -------- //
+// A CTA walks CTA chunks of kCtaSlots slots (block-major, static stride);
+// its warps take the chunk's 32*kSteps-slot iterations in turn.  The table
+// lives over all the CTA's chunks of one block (small chunks keep the CTAs
+// evenly loaded; the table still sees 1/grid of the block's edges).
+template <int R, bool W>
+__global__ void __launch_bounds__(kCombineThreads)
+fused_push_combine(const float* __restrict__ values,
+                   const int32_t* __restrict__ widx,
+                   const int32_t* __restrict__ cidx,
+                   const float* __restrict__ ev,
+                   const uint8_t* __restrict__ mask,
+                   const int32_t* __restrict__ id_map, float* out, int64_t n,
+                   int64_t edge_budget, int64_t local_budget,
+                   int64_t block_size, int64_t chunks_per_block,
+                   int64_t total) {
+  extern __shared__ int table[];  // kTable keys, then kTable partials
+  int* tkey = table;
+  float* tval = reinterpret_cast<float*>(table + kTable);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t pol_stream = policy_evict_first();
+  const uint64_t pol_window = policy_evict_last();
+  for (int i = threadIdx.x; i < kTable; i += kCombineThreads) {
+    tkey[i] = -1;
+    tval[i] = identity<R>();
+  }
+  __syncthreads();
+  // the table's partials into block tb's window, the table emptied
+  auto flush = [&](int64_t tb) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTable; i += kCombineThreads) {
+      const int k = tkey[i];
+      if (k >= 0) {
+        red_global<R>(out + tb * block_size + k, tval[i], pol_window);
+        tkey[i] = -1;
+        tval[i] = identity<R>();
+      }
+    }
+    __syncthreads();
+  };
+  int64_t held_b = -1;  // the block the table's partials belong to
+  for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
+    const int64_t b = t / chunks_per_block;
+    if (held_b >= 0 && b != held_b) flush(held_b);
+    held_b = b;
+    const int64_t s0 = (t - b * chunks_per_block) * kCtaSlots;
+    const int64_t s_end =
+        s0 + kCtaSlots < edge_budget ? s0 + kCtaSlots : edge_budget;
+    const int64_t row = b * edge_budget;
+    float* win = out + b * block_size;
+    const int32_t* ids = id_map + b * local_budget;
+    for (int64_t base = s0 + warp * 32 * kSteps; base < s_end;
+         base += kCombineWarps * 32 * kSteps) {
+      int w[kSteps];
+      float e[kSteps];
+      int64_t src[kSteps];
+      load_steps<W>(widx, cidx, ev, mask, ids, n, local_budget, row,
+                    base + lane, s_end, pol_stream, w, e, src);
+      float v[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u)
+        v[u] = src[u] < n ? __ldg(values + src[u]) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        if (src[u] >= n) continue;
+        const float x = W ? v[u] * e[u] : v[u];
+        // the slot the destination hashes to (multiply-shift: a
+        // multiplicative hash scaled to [0, kTable))
+        const uint32_t hash = static_cast<uint32_t>(w[u]) * 2654435761u;
+        const int h = static_cast<int>((static_cast<uint64_t>(hash) *
+                                        kTable) >> 32);
+        const int held = atomicCAS(&tkey[h], -1, w[u]);
+        if (held == -1 || held == w[u])
+          atomic_reduce<R>(&tval[h], x);
+        else
+          red_global<R>(win + w[u], x, pol_window);
+      }
+    }
+  }
+  if (held_b >= 0) flush(held_b);
+}
+
+// ---- shared-memory window: one CTA per block -------------------------- //
 template <int R, bool W>
 __device__ __forceinline__ void push_edge(
     const float* __restrict__ values, const int32_t* __restrict__ widx,
@@ -75,7 +334,9 @@ __device__ __forceinline__ void push_edge(
     float* win, int64_t n, int64_t b, int64_t local_budget, int64_t slot,
     int d) {
   if (!mask[slot]) return;
-  const int64_t src = id_map[b * local_budget + cidx[slot]];
+  const int k = cidx[slot];
+  if (k < 0 || k >= local_budget) return;
+  const int64_t src = id_map[b * local_budget + k];
   if (src >= n) return;  // padded id_map entry reads nothing
   const int64_t w_row = widx[slot];
   const float w = W ? ev[slot] : 1.0f;
@@ -84,27 +345,6 @@ __device__ __forceinline__ void push_edge(
     if (W) v *= w;
     atomic_reduce<R>(win + w_row * d + f, v);
   }
-}
-
-template <int R, bool W>
-__global__ void __launch_bounds__(kThreads)
-fused_push_global(const float* __restrict__ values,
-                  const int32_t* __restrict__ widx,
-                  const int32_t* __restrict__ cidx,
-                  const float* __restrict__ ev,
-                  const uint8_t* __restrict__ mask,
-                  const int32_t* __restrict__ id_map, float* out, int64_t n,
-                  int64_t edge_budget, int64_t local_budget,
-                  int64_t block_size, int d, int64_t chunks_per_block) {
-  const int64_t b = blockIdx.x / chunks_per_block;
-  const int64_t c = blockIdx.x - b * chunks_per_block;
-  const int64_t row = b * edge_budget;
-  const int64_t s_end =
-      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
-  float* win = out + b * block_size * d;
-  for (int64_t s = c * kChunkSlots + threadIdx.x; s < s_end; s += kThreads)
-    push_edge<R, W>(values, widx, cidx, ev, mask, id_map, win, n, b,
-                    local_budget, row + s, d);
 }
 
 template <int R, bool W>
@@ -140,6 +380,29 @@ fused_push_shared(const float* __restrict__ values,
   }
 }
 
+// ---- the previous global-window design (a yardstick, see the header) --- //
+template <int R, bool W>
+__global__ void __launch_bounds__(kThreads)
+fused_push_global_previous(const float* __restrict__ values,
+                           const int32_t* __restrict__ widx,
+                           const int32_t* __restrict__ cidx,
+                           const float* __restrict__ ev,
+                           const uint8_t* __restrict__ mask,
+                           const int32_t* __restrict__ id_map, float* out,
+                           int64_t n, int64_t edge_budget,
+                           int64_t local_budget, int64_t block_size, int d,
+                           int64_t chunks_per_block) {
+  const int64_t b = blockIdx.x / chunks_per_block;
+  const int64_t c = blockIdx.x - b * chunks_per_block;
+  const int64_t row = b * edge_budget;
+  const int64_t s_end =
+      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
+  float* win = out + b * block_size * d;
+  for (int64_t s = c * kChunkSlots + threadIdx.x; s < s_end; s += kThreads)
+    push_edge<R, W>(values, widx, cidx, ev, mask, id_map, win, n, b,
+                    local_budget, row + s, d);
+}
+
 __global__ void epilogue_kernel(float* __restrict__ out, int64_t count,
                                 const float* __restrict__ eps) {
   const float mul = eps[0], add = eps[1];
@@ -161,38 +424,137 @@ struct Args {
   int d, fuse_epilogue;
 };
 
-template <int R, bool W>
-cudaError_t launch_push(const Args& a, bool shared, cudaStream_t st) {
-  if (shared) {
-    const int64_t bytes = a.block_size * a.d * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_push_shared<R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    fused_push_shared<R, W><<<(unsigned)a.num_blocks, kThreads, bytes, st>>>(
-        a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.eps, a.out, a.n,
-        a.edge_budget, a.local_budget, a.block_size, a.d, a.fuse_epilogue);
-    return cudaGetLastError();
-  }
-  const int64_t chunks = (a.edge_budget + kChunkSlots - 1) / kChunkSlots;
-  const int64_t grid = a.num_blocks * chunks;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  fused_push_global<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
-      a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
-      a.edge_budget, a.local_budget, a.block_size, a.d, chunks);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_epilogue(const Args& a, cudaStream_t st) {
   const int64_t count = a.n * a.d;
-  if (err != cudaSuccess || !a.fuse_epilogue || count == 0) return err;
+  if (!a.fuse_epilogue || count == 0) return cudaSuccess;
   int64_t blocks = (count + kThreads - 1) / kThreads;
   if (blocks > 65536) blocks = 65536;
   epilogue_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(a.out, count, a.eps);
   return cudaGetLastError();
 }
 
+// CTAs of kernel `k` resident on the current card at `threads` threads
+// and `smem` bytes of dynamic shared memory each (0 if the runtime cannot
+// say; its error is then pending)
+template <typename K>
+int64_t resident_ctas(K k, int threads = kThreads, int smem = 0) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+}
+
+template <int R, bool W>
+cudaError_t launch_shared(const Args& a, cudaStream_t st) {
+  const int64_t bytes = a.block_size * a.d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_push_shared<R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  fused_push_shared<R, W><<<(unsigned)a.num_blocks, kThreads, bytes, st>>>(
+      a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.eps, a.out, a.n,
+      a.edge_budget, a.local_budget, a.block_size, a.d, a.fuse_epilogue);
+  return cudaGetLastError();
+}
+
+template <int R, bool W>
+cudaError_t launch_combine(const Args& a, cudaStream_t st) {
+  const int64_t chunks = (a.edge_budget + kCtaSlots - 1) / kCtaSlots;
+  const int64_t total = a.num_blocks * chunks;
+  if (total > 0) {
+    constexpr int smem = kTable * (sizeof(int) + sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_push_combine<R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    const int64_t resident =
+        resident_ctas(fused_push_combine<R, W>, kCombineThreads, smem);
+    if (resident == 0) return cudaGetLastError();
+    const int64_t grid = total < resident ? total : resident;
+    fused_push_combine<R, W><<<(unsigned)grid, kCombineThreads, smem, st>>>(
+        a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
+        a.edge_budget, a.local_budget, a.block_size, chunks, total);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_epilogue(a, st);
+}
+
+template <int R, bool W>
+cudaError_t launch_stream(const Args& a, cudaStream_t st) {
+  if (kCombine && a.d == 1) return launch_combine<R, W>(a, st);
+  const int64_t chunks = (a.edge_budget + kWarpSlots - 1) / kWarpSlots;
+  const int64_t total = a.num_blocks * chunks;
+  if (total > 0) {
+    const int64_t ctas_needed = (total + kWarps - 1) / kWarps;
+    const int64_t resident = resident_ctas(fused_push_stream<R, W>);
+    if (resident == 0) return cudaGetLastError();
+    const int64_t grid = ctas_needed < resident ? ctas_needed : resident;
+    fused_push_stream<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
+        a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
+        a.edge_budget, a.local_budget, a.block_size, a.d, chunks, total);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_epilogue(a, st);
+}
+
+template <int R, bool W>
+cudaError_t launch_previous(const Args& a, cudaStream_t st) {
+  const int64_t chunks = (a.edge_budget + kChunkSlots - 1) / kChunkSlots;
+  const int64_t grid = a.num_blocks * chunks;
+  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  if (grid > 0) {
+    fused_push_global_previous<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
+        a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
+        a.edge_budget, a.local_budget, a.block_size, a.d, chunks);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_epilogue(a, st);
+}
+
+enum Path { kShared = 0, kStream = 1, kPrevious = 2 };
+
+template <int R, bool W>
+cudaError_t launch_path(const Args& a, int path, cudaStream_t st) {
+  if (path == kShared) return launch_shared<R, W>(a, st);
+  if (path == kStream) return launch_stream<R, W>(a, st);
+  return launch_previous<R, W>(a, st);
+}
+
 template <int R>
-cudaError_t launch_push_w(const Args& a, bool shared, cudaStream_t st) {
-  return a.ev != nullptr ? launch_push<R, true>(a, shared, st)
-                         : launch_push<R, false>(a, shared, st);
+cudaError_t launch_w(const Args& a, int path, cudaStream_t st) {
+  return a.ev != nullptr ? launch_path<R, true>(a, path, st)
+                         : launch_path<R, false>(a, path, st);
+}
+
+bool window_shared(int64_t block_size, int d) {
+  return block_size * d * static_cast<int64_t>(sizeof(float)) <=
+         kSmemWindowBytes;
+}
+
+int run(const float* values, const int32_t* widx, const int32_t* cidx,
+        const float* ev, const uint8_t* mask, const int32_t* id_map,
+        const float* eps, float* out, int64_t n, int64_t num_blocks,
+        int64_t edge_budget, int64_t local_budget, int64_t block_size, int d,
+        int reduce, int fuse_epilogue, bool previous, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d < 1 || reduce < kSum || reduce > kMax) return cudaErrorInvalidValue;
+  if (num_blocks == 0) return cudaSuccess;
+  const Args a{values, widx, cidx, ev, mask, id_map, eps, out, n,
+               num_blocks, edge_budget, local_budget, block_size, d,
+               fuse_epilogue};
+  const int path = window_shared(block_size, d)
+                       ? kShared
+                       : (previous ? kPrevious : kStream);
+  if (reduce == kSum) return launch_w<kSum>(a, path, st);
+  if (reduce == kMin) return launch_w<kMin>(a, path, st);
+  return launch_w<kMax>(a, path, st);
 }
 
 }  // namespace
@@ -201,8 +563,7 @@ cudaError_t launch_push_w(const Args& a, bool shared, cudaStream_t st) {
 // wrapper fills `out` with the identity only when it is not (the shared
 // path writes every row below n).
 extern "C" int tocab_fused_push_window_shared(int64_t block_size, int d) {
-  return block_size * d * static_cast<int64_t>(sizeof(float)) <=
-         kSmemWindowBytes;
+  return window_shared(block_size, d);
 }
 
 // Returns cudaGetLastError() after the launches (0 on success).  `ev` null
@@ -216,18 +577,28 @@ extern "C" int tocab_fused_push(const float* values, const int32_t* widx,
                                 int64_t local_budget, int64_t block_size,
                                 int d, int reduce, int fuse_epilogue,
                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || reduce < kSum || reduce > kMax) return cudaErrorInvalidValue;
-  if (num_blocks == 0) return cudaSuccess;
-  const Args a{values, widx, cidx, ev, mask, id_map, eps, out, n,
-               num_blocks, edge_budget, local_budget, block_size, d,
-               fuse_epilogue};
-  const bool shared = tocab_fused_push_window_shared(block_size, d);
-  if (reduce == kSum) return launch_push_w<kSum>(a, shared, st);
-  if (reduce == kMin) return launch_push_w<kMin>(a, shared, st);
-  return launch_push_w<kMax>(a, shared, st);
+  return run(values, widx, cidx, ev, mask, id_map, eps, out, n, num_blocks,
+             edge_budget, local_budget, block_size, d, reduce, fuse_epilogue,
+             false, stream);
+}
+
+// The previous design, same arguments and result (windows that fit shared
+// memory take the shared path in both).
+extern "C" int tocab_fused_push_previous(
+    const float* values, const int32_t* widx, const int32_t* cidx,
+    const float* ev, const uint8_t* mask, const int32_t* id_map,
+    const float* eps, float* out, int64_t n, int64_t num_blocks,
+    int64_t edge_budget, int64_t local_budget, int64_t block_size, int d,
+    int reduce, int fuse_epilogue, void* stream) {
+  return run(values, widx, cidx, ev, mask, id_map, eps, out, n, num_blocks,
+             edge_budget, local_budget, block_size, d, reduce, fuse_epilogue,
+             true, stream);
 }
 
 extern "C" const char* tocab_fused_push_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" const char* tocab_fused_push_previous_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -259,3 +259,90 @@ def test_cuda_kernel_refuses_what_it_cannot_run(cuda_graph):
         tocab_spmm_cuda(x.cpu(), bg.window_idx, bg.compact_idx, bg.edge_mask,
                         None, ids.int(), block_size=bg.block_size,
                         local_budget=bg.local_budget)
+
+
+def _edge_case_graph(seed=1, block=65536):
+    """Three blocks of ``block`` rows, the middle one with no edge;
+    destination 7 pulls from 6000 sources (a run of one compact id longer
+    than the kernel's 2048-slot warp chunk), over 200,000 random edges
+    among the outer blocks (as chip_smoke.py's edge-case graph)."""
+    rng = np.random.default_rng(seed)
+    n = 3 * block
+    outer = np.concatenate([np.arange(block), np.arange(2 * block, n)])
+    src = np.concatenate([rng.choice(outer, 200_000), np.full(6000, 5),
+                          rng.choice(outer, 6000)])
+    dst = np.concatenate([rng.choice(outer, 200_000), rng.choice(outer, 6000),
+                          np.full(6000, 7)])
+    keep = src != dst
+    return T.from_edges(n, src[keep], dst[keep],
+                        vals=rng.random(int(keep.sum()), dtype=np.float32),
+                        dedup=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("previous", [False, True], ids=["as_is", "previous"])
+def test_cuda_kernel_edge_cases(cuda_graph, previous):
+    """Every block of the edge-case graph, the empty one included, with a
+    run longer than a warp chunk and a slab padded to no multiple of a
+    chunk or a 32-slot step; d 1 and 8, weighted and unweighted; the
+    earlier design too, counted apart."""
+    from repro_torch.kernels.tocab_spmm.kernel import tocab_spmm_cuda
+    from repro_torch.kernels.tocab_spmm.ref import tocab_spmm_ref
+
+    g = _edge_case_graph()
+    bg = T.build_blocked(g, block_size=65536, pad_edges_to=1)
+    assert int(bg.n_edges[1]) == 0 and bg.edge_budget % 256
+    ids = torch.arange(bg.num_blocks, dtype=torch.int32, device="cuda")
+    name = "tocab_spmm_previous" if previous else "tocab_spmm"
+    for d in (1, 8):
+        x = torch.from_numpy(_np_vals(g.n, d, seed=15)).cuda()
+        for ev in (bg.edge_vals, None):
+            args = (x, bg.window_idx, bg.compact_idx, bg.edge_mask, ev, ids)
+            kw = dict(block_size=bg.block_size, local_budget=bg.local_budget)
+            before = cuda_build.launches[name]
+            out = tocab_spmm_cuda(*args, previous=previous, **kw)
+            ref = tocab_spmm_ref(*args, **kw)
+            torch.cuda.synchronize()
+            assert cuda_build.launches[name] == before + 1
+            assert not bool(out[1].any())
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_more_chunks_than_resident_warps(cuda_graph):
+    """Scale 22 (67 M edges), every block dense: more warp chunks of 2048
+    slots than the persistent grid has warps (132 SMs x 8 CTAs x 8 warps
+    at most), so every warp walks several.  Held against the function in
+    float64 (the fp32 plain version adds a hub row's ~150,000 messages one
+    atomic at a time, and its own rounding can exceed rtol 1e-4): positive
+    values within rtol 1e-4 of each entry; standard-normal values within
+    1e-4 of the entry's sum of magnitudes, since a hub row's signed terms
+    can cancel to a small sum that no fp32 summation order holds to 1e-4
+    of itself."""
+    g = T.rmat_graph(scale=22, edge_factor=16, seed=5, weights=True)
+    bg = T.build_blocked(g, block_size=1 << 21, bin_thresholds=(0.0, 0.0))
+    assert bg.num_blocks * bg.edge_budget > 132 * 64 * 2048
+    k, B, lb = bg.num_blocks, bg.block_size, bg.local_budget
+    offs = torch.arange(k, device="cuda")[:, None]
+    keep = bg.edge_mask
+    rows = (bg.compact_idx.long() + offs * lb)[keep]
+    cols = (bg.window_idx.long() + offs * B)[keep]
+
+    def f64_sum(msgs):
+        out = torch.zeros(k * lb, dtype=torch.float64, device="cuda")
+        return out.index_add_(0, rows, msgs).view(k, lb)
+
+    for signed in (False, True):
+        rng = np.random.default_rng(16)
+        xs = rng.standard_normal(g.n) if signed else rng.random(g.n)
+        x = torch.from_numpy(xs.astype(np.float32)).cuda()
+        for unweighted in (False, True):
+            out = tocab_spmm_partials(bg, x, unweighted=unweighted).double()
+            msgs = x.double()[cols]
+            if not unweighted:
+                msgs = msgs * bg.edge_vals[keep].double()
+            ref = f64_sum(msgs)
+            scale = f64_sum(msgs.abs()) if signed else ref.abs()
+            err = (out - ref).abs()
+            assert bool((err <= 1e-5 + 1e-4 * scale).all()), \
+                float((err / (1e-5 + 1e-4 * scale)).max())
