@@ -32,10 +32,13 @@ Variants: each source with one edit, made in a temporary directory (the
 repository's files are not touched), built with the loader's ``nvcc``
 flags and called through the package's own launcher:
 
-* ``previous`` — the earlier design, the source's ``*_previous`` entry;
+* ``previous`` — the earlier designs (``PREVIOUS_SRC``, a copy of their
+  global-window kernels, sum semiring): push one CTA per 4096-slot chunk,
+  one slot a thread, every message an atomic; SpMM one CTA per 4096-slot
+  chunk, one slot and one gather in flight a lane, an atomic per run per
+  32-slot step;
 * ``as_is`` — the source;
-* push: ``no_combine`` (no shared-memory table: every edge a RED),
-  ``table8192`` / ``table16384`` (table entries, 28672 as is),
+* push: ``table8192`` / ``table16384`` (table entries, 28672 as is),
   ``threads256_table4096`` (combining CTAs of 256 threads, four an SM,
   each with a 4096-entry table; one CTA of 1024 threads as is),
   ``steps8`` (batched 32-slot steps a warp, 4 as is), ``counted`` (as
@@ -45,7 +48,9 @@ flags and called through the package's own launcher:
   2048 as is), ``nonpersistent`` (one CTA per 8 warp chunks),
   ``streams_l1`` (slot streams through L1, no L2 policy),
   ``window_normal`` (the window's L2 policy evict-normal),
-  ``window_no_l1`` (window gathers without L1 allocation).
+  ``window_no_l1`` (window gathers without L1 allocation); and ``as_is``
+  against ``previous`` at d = 8 (``(n, 8)`` values), where the slot
+  streams are read once for eight features.
 
 Every variant is held against the plain version at the main shapes
 (``chip_smoke.py``'s ``SUM_RTOL`` and atol); ``fused_pull`` and a
@@ -58,7 +63,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import json
 import subprocess
 import sys
@@ -226,6 +230,158 @@ extern "C" int probe_streams(const void* widx, const void* cidx,
 }
 """
 
+#: The earlier global-window designs of fused_push (d = 1 and d > 1 alike)
+#: and tocab_spmm, sum semiring, weighted or not: the yardsticks that
+#: ``previous_ms`` times (:class:`Previous`).
+PREVIOUS_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int kThreads = 256;
+constexpr int64_t kChunkSlots = 4096;  // edge slots per CTA
+constexpr unsigned kFull = 0xffffffffu;
+
+// push: one CTA per chunk, one slot a thread, one atomic a message
+template <bool W>
+__global__ void __launch_bounds__(kThreads)
+push_global(const float* __restrict__ values, const int32_t* __restrict__ widx,
+            const int32_t* __restrict__ cidx, const float* __restrict__ ev,
+            const uint8_t* __restrict__ mask,
+            const int32_t* __restrict__ id_map, float* out, int64_t n,
+            int64_t edge_budget, int64_t local_budget, int64_t block_size,
+            int d, int64_t chunks_per_block) {
+  const int64_t b = blockIdx.x / chunks_per_block;
+  const int64_t c = blockIdx.x - b * chunks_per_block;
+  const int64_t row = b * edge_budget;
+  const int64_t s_end =
+      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
+  float* win = out + b * block_size * d;
+  for (int64_t s = row + c * kChunkSlots + threadIdx.x; s < row + s_end;
+       s += kThreads) {
+    if (!mask[s]) continue;
+    const int k = cidx[s];
+    if (k < 0 || k >= local_budget) continue;
+    const int64_t src = id_map[b * local_budget + k];
+    if (src >= n) continue;
+    const int64_t w_row = widx[s];
+    const float w = W ? ev[s] : 1.0f;
+    for (int f = 0; f < d; ++f)
+      atomicAdd(win + w_row * d + f, W ? values[src * d + f] * w
+                                       : values[src * d + f]);
+  }
+}
+
+__global__ void epilogue_kernel(float* __restrict__ out, int64_t count,
+                                const float* __restrict__ eps) {
+  const float mul = eps[0], add = eps[1];
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       i < count; i += (int64_t)gridDim.x * blockDim.x)
+    out[i] = __fadd_rn(__fmul_rn(out[i], mul), add);
+}
+
+// SpMM: one CTA per chunk, one slot and one gather a lane, the runs of
+// equal cidx reduced by a segmented shuffle scan, an atomic per run a step
+template <bool W>
+__global__ void __launch_bounds__(kThreads)
+spmm_kernel(const float* __restrict__ values, const int32_t* __restrict__ widx,
+            const int32_t* __restrict__ cidx, const float* __restrict__ ev,
+            const uint8_t* __restrict__ mask,
+            const int32_t* __restrict__ block_ids, float* __restrict__ out,
+            int64_t num_blocks, int64_t edge_budget, int64_t block_size,
+            int64_t local_budget, int d, int64_t chunks_per_block) {
+  const int64_t j = blockIdx.x / chunks_per_block;
+  const int64_t c = blockIdx.x - j * chunks_per_block;
+  const int64_t b = block_ids[j];
+  if (b < 0 || b >= num_blocks) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t lo = b * block_size;
+  const int64_t row = b * edge_budget;
+  float* slab = out + j * local_budget * d;
+  const int64_t s_end =
+      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
+  const unsigned lanes_le = kFull >> (31 - lane);
+  for (int64_t base = c * kChunkSlots + warp * 32; base < s_end;
+       base += kThreads) {
+    const int64_t s = base + lane;
+    int key = -1;
+    if (s < s_end && mask[row + s]) {
+      const int k = cidx[row + s];
+      if (k >= 0 && k < local_budget) key = k;
+    }
+    const bool live = key >= 0;
+    const int64_t src = live ? lo + widx[row + s] : 0;
+    const float w = (W && live) ? ev[row + s] : 1.0f;
+    const int prev = __shfl_up_sync(kFull, key, 1);
+    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
+    const int seg = 31 - __clz(heads & lanes_le);
+    const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    for (int f = 0; f < d; ++f) {
+      float v = live ? values[src * d + f] : 0.0f;
+      if (W) v *= w;
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(kFull, v, off);
+        if (lane - off >= seg) v += t;
+      }
+      if (tail && live) atomicAdd(slab + (int64_t)key * d + f, v);
+    }
+  }
+}
+
+// out: the identity (0) filled by the caller; eps read when fuse_epilogue
+extern "C" int previous_fused_push(
+    const float* values, const int32_t* widx, const int32_t* cidx,
+    const float* ev, const uint8_t* mask, const int32_t* id_map,
+    const float* eps, float* out, int64_t n, int64_t num_blocks,
+    int64_t edge_budget, int64_t local_budget, int64_t block_size, int d,
+    int fuse_epilogue, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t chunks = (edge_budget + kChunkSlots - 1) / kChunkSlots;
+  const int64_t grid = num_blocks * chunks;
+  if (grid > 0x7fffffff || d < 1) return cudaErrorInvalidConfiguration;
+  if (grid > 0) {
+    if (ev != nullptr)
+      push_global<true><<<(unsigned)grid, kThreads, 0, st>>>(
+          values, widx, cidx, ev, mask, id_map, out, n, edge_budget,
+          local_budget, block_size, d, chunks);
+    else
+      push_global<false><<<(unsigned)grid, kThreads, 0, st>>>(
+          values, widx, cidx, ev, mask, id_map, out, n, edge_budget,
+          local_budget, block_size, d, chunks);
+  }
+  const int64_t count = n * d;
+  if (fuse_epilogue && count > 0) {
+    int64_t blocks = (count + kThreads - 1) / kThreads;
+    if (blocks > 65536) blocks = 65536;
+    epilogue_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(out, count, eps);
+  }
+  return cudaGetLastError();
+}
+
+// out: zero-filled by the caller
+extern "C" int previous_tocab_spmm(
+    const float* values, const int32_t* widx, const int32_t* cidx,
+    const float* ev, const uint8_t* mask, const int32_t* block_ids,
+    float* out, int64_t num_ids, int64_t num_blocks, int64_t edge_budget,
+    int64_t block_size, int64_t local_budget, int d, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t chunks = (edge_budget + kChunkSlots - 1) / kChunkSlots;
+  const int64_t grid = num_ids * chunks;
+  if (grid > 0x7fffffff || d < 1) return cudaErrorInvalidConfiguration;
+  if (grid > 0 && local_budget > 0) {
+    if (ev != nullptr)
+      spmm_kernel<true><<<(unsigned)grid, kThreads, 0, st>>>(
+          values, widx, cidx, ev, mask, block_ids, out, num_blocks,
+          edge_budget, block_size, local_budget, d, chunks);
+    else
+      spmm_kernel<false><<<(unsigned)grid, kThreads, 0, st>>>(
+          values, widx, cidx, ev, mask, block_ids, out, num_blocks,
+          edge_budget, block_size, local_budget, d, chunks);
+  }
+  return cudaGetLastError();
+}
+"""
+
 _POLICIES = (
     ('asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));',
      'asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));'),
@@ -295,8 +451,6 @@ def variants(src: str, kernel: str) -> dict:
         table = "constexpr int kTable = 28672;"
         thr = "constexpr int kCombineThreads = 1024;"
         out.update({
-            "no_combine": _edit(src, (("constexpr bool kCombine = true;",
-                                       "constexpr bool kCombine = false;"),)),
             "table8192": _edit(src, ((table, table.replace("28672",
                                                            "8192")),)),
             "table16384": _edit(src, ((table, table.replace("28672",
@@ -481,6 +635,69 @@ class Floors:
             widx.numel() // 4, sink.data_ptr(), grid, stream), reps)
 
 
+class Previous:
+    """The earlier designs (``PREVIOUS_SRC``), loaded from a built library:
+    each call takes the package's blocked layout and returns what the
+    package's launcher returns for it (sum semiring, the global-window
+    path)."""
+
+    def __init__(self, path: Path):
+        P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib = ctypes.CDLL(str(path))
+        lib.previous_fused_push.argtypes = [P] * 8 + [I64] * 5 + [I32] * 2 \
+            + [P]
+        lib.previous_tocab_spmm.argtypes = [P] * 7 + [I64] * 5 + [I32, P]
+        lib.previous_fused_push.restype = I32
+        lib.previous_tocab_spmm.restype = I32
+        self.lib = lib
+
+    @staticmethod
+    def _check(rc: int, what: str):
+        if rc:
+            raise RuntimeError(f"{what}: CUDA error {rc}")
+
+    def fused_push(self, values, bg, edge_vals=None, epilogue=None):
+        """``fused_push_cuda(values, <bg's slabs>, edge_vals, ...,
+        reduce="sum", epilogue=epilogue)`` on the earlier design."""
+        import torch
+
+        n, d = values.shape
+        out = torch.zeros((n, d), dtype=torch.float32, device=values.device)
+        eps = None if epilogue is None else torch.stack([
+            torch.as_tensor(v, dtype=torch.float32,
+                            device=values.device).reshape(())
+            for v in epilogue])
+        self._check(self.lib.previous_fused_push(
+            values.data_ptr(), bg.window_idx.data_ptr(),
+            bg.compact_idx.data_ptr(),
+            None if edge_vals is None else edge_vals.data_ptr(),
+            bg.edge_mask.data_ptr(), bg.id_map.data_ptr(),
+            None if eps is None else eps.data_ptr(), out.data_ptr(), n,
+            bg.num_blocks, bg.edge_budget, bg.local_budget, bg.block_size, d,
+            int(eps is not None), torch.cuda.current_stream().cuda_stream),
+            "previous fused_push")
+        return out
+
+    def tocab_spmm(self, values, window_idx, compact_idx, edge_mask,
+                   edge_vals, block_ids, *, block_size: int,
+                   local_budget: int):
+        """``tocab_spmm_cuda`` (same arguments) on the earlier design."""
+        import torch
+
+        n, d = values.shape
+        nb, eb = window_idx.shape
+        k = block_ids.shape[0]
+        out = torch.zeros((k, local_budget, d), dtype=torch.float32,
+                          device=values.device)
+        self._check(self.lib.previous_tocab_spmm(
+            values.data_ptr(), window_idx.data_ptr(), compact_idx.data_ptr(),
+            None if edge_vals is None else edge_vals.data_ptr(),
+            edge_mask.data_ptr(), block_ids.data_ptr(), out.data_ptr(), k,
+            nb, eb, block_size, local_budget, d,
+            torch.cuda.current_stream().cuda_stream), "previous tocab_spmm")
+        return out
+
+
 def load_as(kernel: str, path: Path, signatures: dict) -> ctypes.CDLL:
     """Load a variant library and make the package's launcher for
     ``kernel`` use it (:data:`cuda_build._LIBS`)."""
@@ -528,7 +745,7 @@ def main(argv=None) -> int:
     cuda_build.build(["fused_pull", "fused_push", "tocab_spmm"])
     srcs = {"fused_push": cuda_build._source("fused_push").read_text(),
             "tocab_spmm": cuda_build._source("tocab_spmm").read_text()}
-    jobs = {"probe": PROBE_SRC}
+    jobs = {"probe": PROBE_SRC, "previous": PREVIOUS_SRC}
     for kernel, text in srcs.items():
         for name, body in variants(text, kernel).items():
             jobs[f"{kernel}__{name}"] = body
@@ -540,11 +757,12 @@ def main(argv=None) -> int:
                         if nm != "probe"}}, out)
     I64, I32 = ctypes.c_int64, ctypes.c_int
     floors = Floors(libs["probe"])
-    push_sigs = {}
-    for entry in ("tocab_fused_push", "tocab_fused_push_previous"):
-        push_sigs[entry] = fk._ENTRY_ARGS
-        push_sigs[f"{entry}_error"] = ([I32], ctypes.c_char_p)
-    push_sigs["tocab_fused_push_window_shared"] = ([I64, I32], I32)
+    previous = Previous(libs["previous"])
+    push_sigs = {
+        "tocab_fused_push": ([ctypes.c_void_p] * 8 + [I64] * 5 + [I32] * 3
+                             + [ctypes.c_void_p], I32),
+        "tocab_fused_push_error": ([I32], ctypes.c_char_p),
+        "tocab_fused_push_window_shared": ([I64, I32], I32)}
 
     # ---- the scale-24 graph and its layouts ---- #
     t0 = time.perf_counter()
@@ -636,12 +854,11 @@ def main(argv=None) -> int:
                               reduce="sum")
 
     ref = fused_push_ref(push, x2, "sum", UNWEIGHTED)
-    runs = [("previous", libs["fused_push__as_is"],
-             functools.partial(fk.fused_push_cuda, previous=True))]
+    runs = [("previous", None, lambda *a, **kw: previous.fused_push(x2, push))]
     runs += [(name, libs[f"fused_push__{name}"], fk.fused_push_cuda)
              for name in variants(srcs["fused_push"], "fused_push")]
     for name, path, launch in runs:
-        lib = load_as("fused_push", path, push_sigs)
+        lib = load_as("fused_push", path, push_sigs) if path else None
         fn = push_call(launch)
         ms = cs.cuda_ms(fn, reps=10, warmup=2)
         err, atol, used = cs.check_close(f"fused_push {name}", fn(), ref,
@@ -689,18 +906,35 @@ def main(argv=None) -> int:
     emit({"phase": "yardstick", "name": "csr_matvec_dense_block",
           "ms": cs.cuda_ms(lambda: a @ windows, reps=5)}, out)
     del a, cols, crow, windows
-    runs = [("previous", libs["tocab_spmm__as_is"],
-             functools.partial(sk.tocab_spmm_cuda, previous=True))]
+    runs = [("previous", None, previous.tocab_spmm)]
     runs += [(name, libs[f"tocab_spmm__{name}"], sk.tocab_spmm_cuda)
              for name in variants(srcs["tocab_spmm"], "tocab_spmm")]
     for name, path, launch in runs:
-        load_as("tocab_spmm", path, sk._SIGNATURES)
+        if path is not None:
+            load_as("tocab_spmm", path, sk._SIGNATURES)
         ms = cs.cuda_ms(lambda: launch(*sargs, **skw), reps=10, warmup=2)
         err, atol, used = cs.check_close(f"tocab_spmm {name}",
                                          launch(*sargs, **skw), ref, "sum")
         emit({"phase": "variant", "kernel": "tocab_spmm", "variant": name,
               "ms": ms, "max_abs_err": err, "tolerance_used": used}, out)
     cuda_build._LIBS.pop("tocab_spmm", None)
+    del ref
+
+    # d = 8: the slot streams read once for eight features, against the
+    # earlier design, which also reads them once
+    x8 = torch.rand((n, 8), generator=torch.Generator().manual_seed(
+        cs.SEED)).cuda()
+    sargs8 = (x8,) + sargs[1:]
+    ref = tocab_spmm_ref(*sargs8, **skw)
+    for name, launch in (("previous", previous.tocab_spmm),
+                         ("as_is", sk.tocab_spmm_cuda)):
+        ms = cs.cuda_ms(lambda: launch(*sargs8, **skw), reps=5, warmup=1)
+        err, atol, used = cs.check_close(f"tocab_spmm d=8 {name}",
+                                         launch(*sargs8, **skw), ref, "sum")
+        emit({"phase": "variant", "kernel": "tocab_spmm", "d": 8,
+              "variant": name, "ms": ms, "max_abs_err": err,
+              "tolerance_used": used}, out)
+    del ref, x8
     emit({"phase": "done", "launches": dict(cuda_build.launches)}, out)
     return 0
 

@@ -31,8 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    boundary and 1, splits auto / 1 / 8, softcap, MQA, one launch a call;
    its split-count invariance, its empty splits, and bit-identical repeats
    at the serve shape and a 32768-slot cache; an fp32 query beside a bf16
-   cache (a serving path with ``compute_dtype="float32"``) and a bf16
-   query beside an fp32 cache, one launch a call, at the bf16 tolerance; ``flash_attention`` at the
+   cache (a serving path with ``compute_dtype="float32"``), held to
+   rtol 2⁻¹³ (``FP32_Q_RTOL``, which the same q rounded to bf16 is checked
+   to fail), and a bf16 query beside an fp32 cache at the bf16 tolerance,
+   one launch a call; ``flash_attention`` at the
    8 × 2048 prefill in fp32 (FMA) and bf16 (tensor cores), ``flash_decode``
    in fp32 at a 32768-slot cache.  fp32 at rtol = atol = 2e-5, bf16 at one
    bf16 ulp relative plus two of the mean |entry|.
@@ -51,7 +53,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Each graph kernel timed at the main path's shapes beside its plain
    version, its bound and a ``torch.sparse`` CSR product of the same matrix;
    ``fused_push`` and ``tocab_spmm`` also beside their earlier designs
-   (``previous_ms``), and each graph kernel beside the floors of
+   (``previous_ms``, built from ``benchmarks/torch_graph_kernel_variants.py``'s
+   copy of them), and each graph kernel beside the floors of
    ``benchmarks/torch_graph_kernel_variants.py`` at its own sizes: random
    reductions (push) or gathers (pull, SpMM) into a window-sized array,
    and its slot streams read alone.
@@ -151,6 +154,9 @@ SOURCES = {
         "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
 }
 
+#: where the graph kernels' earlier designs, timed as ``previous_ms``, live
+PREVIOUS_SOURCE = "benchmarks/torch_graph_kernel_variants.py (PREVIOUS_SRC)"
+
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the operation
 #: bound of attention at bf16
 BF16_OPS_PER_S = 989e12
@@ -173,6 +179,14 @@ FP32_KERNEL_TOL = 2e-5
 #: (~0.009).
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL_OF_MEAN = 2.0 ** -6
+#: flash_decode with an fp32 query beside a bf16 cache, output fp32: the
+#: plain version computes in fp32 from the same bf16 cache values; the
+#: tensor-core route splits q (and P) into two bf16 halves, held to 2⁻¹⁶.
+#: rtol 2⁻¹³ and atol 2⁻¹³ of the mean |entry|: three bits above the
+#: halves, four below bf16's 2⁻⁹, so that a q rounded to bf16 fails it
+#: (phase 3 checks that it does, in every case with more than one slot).
+FP32_Q_RTOL = 2.0 ** -13
+FP32_Q_ATOL_OF_MEAN = 2.0 ** -13
 
 #: full-width fp32 prefill (forward, flash_attention) vs 256 decode steps
 #: (serve_decode, flash_decode): the reference's test_lm_prefill_matches_
@@ -629,7 +643,7 @@ def graph_floors(floors, window: int, slabs, ops: int, kind: str) -> dict:
             "stream_slots": slabs[0].numel()}
 
 
-def phase_timing(main: dict, log, floors) -> list:
+def phase_timing(main: dict, log, floors, previous) -> list:
     import torch
 
     from repro_torch.kernels.tocab_fused.kernel import (fused_pull_cuda,
@@ -667,20 +681,20 @@ def phase_timing(main: dict, log, floors) -> list:
              "red")):
         x2 = contrib[:, None]
 
-        def run(**kw):
+        def run():
             return launch(x2, bg.window_idx, bg.compact_idx, None,
                           bg.edge_mask, bg.id_map, block_size=bg.block_size,
-                          reduce="sum", epilogue=eps, **kw)
+                          reduce="sum", epilogue=eps)
 
         ms = cuda_ms(run, reps=10, warmup=2)
         extra = {}
         if name == "fused_push":  # beside its earlier design
-            extra["previous_ms"] = cuda_ms(lambda: run(previous=True),
-                                           reps=10, warmup=2)
-            extra["previous_source"] = (f"{SOURCES[name]} "
-                                        "(tocab_fused_push_previous)")
+            def run_previous():
+                return previous.fused_push(x2, bg, epilogue=eps)
+            extra["previous_ms"] = cuda_ms(run_previous, reps=10, warmup=2)
+            extra["previous_source"] = PREVIOUS_SOURCE
             err_prev, _, _ = check_close(f"{name} previous at main shapes",
-                                         run(previous=True), plain(
+                                         run_previous(), plain(
                                              bg, x2, "sum", UNWEIGHTED, eps),
                                          "sum")
             extra["previous_max_abs_err"] = err_prev
@@ -716,14 +730,14 @@ def phase_timing(main: dict, log, floors) -> list:
         })
         log(f"{name}: bytes={nbytes} "
             f"max_abs_err_vs_library={lib_err:.3g}")
-    records.append(time_spmm(main, contrib, log, floors))
+    records.append(time_spmm(main, contrib, log, floors, previous))
     time_balanced_bins(main, contrib)
     emit({"phase": "memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     return records
 
 
-def time_spmm(main: dict, contrib, log, floors) -> dict:
+def time_spmm(main: dict, contrib, log, floors, previous) -> dict:
     """``tocab_spmm`` on the balanced pull layout's dense bin at the main
     path's shapes: PageRank contributions, unweighted; beside its earlier
     design and its floors."""
@@ -742,15 +756,15 @@ def time_spmm(main: dict, contrib, log, floors) -> dict:
     args = (x2, bg.window_idx, bg.compact_idx, bg.edge_mask, None, ids_t)
     kw = dict(block_size=B, local_budget=budget)
     ms = cuda_ms(lambda: tocab_spmm_cuda(*args, **kw), reps=10, warmup=2)
-    previous_ms = cuda_ms(lambda: tocab_spmm_cuda(*args, previous=True,
-                                                  **kw), reps=10, warmup=2)
+    previous_ms = cuda_ms(lambda: previous.tocab_spmm(*args, **kw), reps=10,
+                          warmup=2)
     plain_ms = cuda_ms(lambda: tocab_spmm_ref(*args, **kw), reps=3)
     out, ref = tocab_spmm_cuda(*args, **kw), tocab_spmm_ref(*args, **kw)
     torch.cuda.synchronize()
     err, atol, used = check_close("tocab_spmm at main shapes", out, ref,
                                   "sum")
     err_prev, _, _ = check_close("tocab_spmm previous at main shapes",
-                                 tocab_spmm_cuda(*args, previous=True, **kw),
+                                 previous.tocab_spmm(*args, **kw),
                                  ref, "sum")
     del ref
 
@@ -801,7 +815,7 @@ def time_spmm(main: dict, contrib, log, floors) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms, "previous_ms": previous_ms,
-        "previous_source": f"{SOURCES['tocab_spmm']} (tocab_spmm_previous)",
+        "previous_source": PREVIOUS_SOURCE,
         "previous_max_abs_err": err_prev, "floors": spmm_floors,
         "rtol": SUM_RTOL, "atol": atol, "tolerance_used": used,
         "dense_blocks": list(ids), "edges": edges, "local_budget": budget,
@@ -831,15 +845,20 @@ def time_balanced_bins(main: dict, contrib):
 # --------------------------------------------------------------------- #
 # phase 3: the attention kernels vs their plain versions
 # --------------------------------------------------------------------- #
-def tol_share(out, ref, bf16: bool = False):
+def tol_share(out, ref, bf16: bool = False, fp32_q: bool = False):
     """Max |out - ref|, the worst entry's share of ``atol + rtol·|ref|``,
     and that (rtol, atol): :data:`FP32_KERNEL_TOL` for an fp32 ``out``,
     :data:`BF16_RTOL` and :data:`BF16_ATOL_OF_MEAN` of mean |ref| for bf16
-    (or when ``bf16`` says the inputs were).  All in fp32."""
+    (or when ``bf16`` says the inputs were), :data:`FP32_Q_RTOL` and
+    :data:`FP32_Q_ATOL_OF_MEAN` of mean |ref| when ``fp32_q`` says the
+    output is that of an fp32 query beside a bf16 cache.  All in fp32."""
     import torch
 
     ref = ref.float()
-    if out.dtype == torch.float32 and not bf16:
+    if fp32_q:
+        rtol = FP32_Q_RTOL
+        atol = FP32_Q_ATOL_OF_MEAN * float(ref.abs().mean())
+    elif out.dtype == torch.float32 and not bf16:
         rtol = atol = FP32_KERNEL_TOL
     else:
         rtol, atol = BF16_RTOL, BF16_ATOL_OF_MEAN * float(ref.abs().mean())
@@ -874,17 +893,20 @@ def phase_attention_kernels(seed: int, log) -> dict:
     names = ("flash_attention", "flash_decode")
     worst = {n: {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
              for n in names}
-    worst["flash_decode"]["mixed"] = (0.0, 0.0)
+    for mixed in ("q_fp32_cache_bf16", "q_bf16_cache_fp32"):
+        worst["flash_decode"][mixed] = (0.0, 0.0)
     cases = {n: 0 for n in names}
 
-    def record(name, what, out, ref, mixed=False):
-        err, share, rtol, atol = tol_share(out, ref, bf16=mixed)
+    def record(name, what, out, ref, mixed=None):
+        err, share, rtol, atol = tol_share(
+            out, ref, bf16=mixed == "q_bf16_cache_fp32",
+            fp32_q=mixed == "q_fp32_cache_bf16")
         log(f"{name} {what}: max_abs_err={err:.3g} rtol={rtol:.3g} "
             f"atol={atol:.3g} tolerance_used={share:.3g}")
         if not share <= 1.0:  # NaN fails too
             raise AssertionError(f"{name} {what}: max_abs_err={err} is "
                                  f"{share:.3g}× the tolerance")
-        dt = "mixed" if mixed else str(out.dtype)[6:]
+        dt = mixed or str(out.dtype)[6:]
         w = worst[name][dt]
         worst[name][dt] = (max(w[0], err), max(w[1], share))
         cases[name] += 1
@@ -954,11 +976,14 @@ def phase_attention_kernels(seed: int, log) -> dict:
 
     # a query whose dtype differs from the cache's: fp32 beside bf16 (a
     # serving path with compute_dtype="float32"; the tensor-core route
-    # splits q into two bf16 halves) and bf16 beside fp32.  Output in q's
-    # dtype, one launch a call, at the bf16 tolerance (the cache or the
-    # query holds bf16 values)
+    # splits q into two bf16 halves), held to FP32_Q_RTOL, which the same
+    # q rounded to bf16 must fail; and bf16 beside fp32, whose bf16 output
+    # is held to the bf16 tolerance.  Output in q's dtype, one launch a call
+    rounded_q_share = float("inf")  # the least over the fp32-q cases
     for q_dtype, c_dtype in ((torch.float32, torch.bfloat16),
                              (torch.bfloat16, torch.float32)):
+        mixed = ("q_fp32_cache_bf16" if q_dtype == torch.float32
+                 else "q_bf16_cache_fp32")
         for B, Hq, Hkv, S, D in dshapes:
             q = rand(B, Hq, 1, D, dtype=q_dtype)
             k, v = (rand(B, Hkv, S, D, dtype=c_dtype) for _ in range(2))
@@ -975,9 +1000,19 @@ def phase_attention_kernels(seed: int, log) -> dict:
                                              f"{out.dtype}, q {q_dtype}")
                     ref = flash_decode_ref(q, k, v, **kw)
                     torch.cuda.synchronize()
-                    record("flash_decode", f"q {q_dtype} cache {c_dtype} "
-                           f"q={tuple(q.shape)} kv={tuple(k.shape)} {kw}",
-                           out, ref, mixed=True)
+                    what = (f"q {q_dtype} cache {c_dtype} q={tuple(q.shape)} "
+                            f"kv={tuple(k.shape)} {kw}")
+                    record("flash_decode", what, out, ref, mixed=mixed)
+                    if mixed == "q_fp32_cache_bf16" and kv_len > 1:
+                        # one slot's softmax weight is 1 whatever q is
+                        _, share, _, _ = tol_share(flash_decode_ref(
+                            q.to(torch.bfloat16).float(), k, v, **kw), ref,
+                            fp32_q=True)
+                        if not share > 1.0:
+                            raise AssertionError(
+                                f"flash_decode {what}: q rounded to bf16 "
+                                f"passes the fp32-q tolerance ({share:.3g})")
+                        rounded_q_share = min(rounded_q_share, share)
 
     # the main path's shapes in fp32: TinyLlama's prefill of 8 × 2048 tokens
     # (32 query / 4 KV heads of 64, causal) and a 32768-slot decode cache
@@ -1058,12 +1093,16 @@ def phase_attention_kernels(seed: int, log) -> dict:
                                     "atol": FP32_KERNEL_TOL},
                         "bfloat16": {"rtol": BF16_RTOL,
                                      "atol_of_mean_abs": BF16_ATOL_OF_MEAN},
-                        "mixed": "bfloat16's"},
+                        "q_fp32_cache_bf16": {
+                            "rtol": FP32_Q_RTOL,
+                            "atol_of_mean_abs": FP32_Q_ATOL_OF_MEAN},
+                        "q_bf16_cache_fp32": "bfloat16's"},
           "max_abs_err": {n: {dt: e for dt, (e, _) in w.items()}
                           for n, w in worst.items()},
           "tolerance_used": {n: {dt: u for dt, (_, u) in w.items()}
                              for n, w in worst.items()},
           "split_invariance_max_diff": spread,
+          "q_rounded_to_bf16_least_tolerance_used": rounded_q_share,
           "flash_attention_tensor_core_cases": on_tc,
           "flash_decode_repeats": repeats,
           "seconds": time.perf_counter() - t0})
@@ -1711,17 +1750,21 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0)})
 
     from benchmarks.torch_graph_kernel_variants import (
-        PROBE_SRC, Floors, finish_build, start_build)
+        PREVIOUS_SRC, PROBE_SRC, Floors, Previous, finish_build, start_build)
     from repro_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
     probe_dir = tempfile.TemporaryDirectory()
-    probe = start_build({"floor_probes": PROBE_SRC}, Path(probe_dir.name))
+    probe = start_build({"floor_probes": PROBE_SRC,
+                         "previous_designs": PREVIOUS_SRC},
+                        Path(probe_dir.name))
     logs = cuda_build.build()
-    floors = Floors(finish_build(probe)["floor_probes"])
-    probe_dir.cleanup()  # the library stays loaded
+    probe_libs = finish_build(probe)
+    floors = Floors(probe_libs["floor_probes"])
+    previous = Previous(probe_libs["previous_designs"])
+    probe_dir.cleanup()  # the libraries stay loaded
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs) + ["floor_probes"]})
+          "built": sorted(logs) + sorted(probe_libs)})
     for nm, text in logs.items():
         log(f"--- nvcc {nm} ---\n{text}")
 
@@ -1729,7 +1772,7 @@ def main(argv=None) -> int:
     phase_spmm_kernel(SEED, log)
     phase_attention_kernels(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
-    records = phase_timing(main_state, log, floors)
+    records = phase_timing(main_state, log, floors, previous)
     del main_state
     torch.cuda.empty_cache()
     lm = phase_lm(SEED, log)

@@ -31,19 +31,20 @@
 //     table is flushed (one RED per held destination) when the CTA moves
 //     to another block and at its end.  Hubs claim slots early and often:
 //     at scale 24 the table takes ~24-30 % of the edges, and those are the
-//     ones that would queue.  For d > 1 (fused_push_stream) warps walk
-//     chunks of kWarpSlots slots with no table.  Both walk their chunks
-//     block-major with a static stride, so the CTAs in flight scatter into
-//     one block's window, and batch kSteps 32-slot steps a warp: each
-//     step's mask, then its cidx/widx where the mask is set (a padding slot
-//     reads its mask only; issuing all the masks first measured slower),
-//     then all steps' id_map reads, then their value reads (edges are
-//     sorted by cidx: a few broadcast addresses a step, through L1), then
-//     the reductions.  Cache policy: the slot
-//     streams are read with an L2 evict-first hint and no L1 allocation,
-//     the reductions into the window carry an L2 evict-last hint.  The
-//     wrapper fills out with the identity, and a second small kernel
-//     applies the epilogue.
+//     ones that would queue.  The CTAs walk their chunks block-major with a
+//     static stride, so the CTAs in flight scatter into one block's window,
+//     and each warp batches kSteps 32-slot steps: each step's mask, then
+//     its cidx/widx where the mask is set (a padding slot reads its mask
+//     only; issuing all the masks first measured slower), then all steps'
+//     id_map reads, then their value reads (edges are sorted by cidx: a few
+//     broadcast addresses a step, through L1), then the reductions.  Cache
+//     policy: the slot streams are read with an L2 evict-first hint and no
+//     L1 allocation, the reductions into the window carry an L2 evict-last
+//     hint.  For d > 1 (fused_push_global) CTAs take contiguous chunks of
+//     kChunkSlots slots, chunk fastest-varying in the grid, one slot a
+//     thread, every message one atomic into the window in L2.  The wrapper
+//     fills out with the identity, and a second small kernel applies the
+//     epilogue.
 // Windows are disjoint, so a block never touches another block's rows: the
 // order blocks are visited in cannot change results.
 //
@@ -56,10 +57,8 @@
 // fewer where hub rows queue.  benchmarks/torch_graph_kernel_variants.py
 // measures these floors and the design's variants.
 //
-// The earlier design (one CTA per 4096-slot chunk, one slot at a time per
-// thread, no cache hints) is kept as tocab_fused_push_previous, a yardstick
-// that chip_smoke.py and benchmarks/torch_graph_kernel_variants.py time
-// beside this one; no path of the package calls it.
+// The earlier d = 1 design (fused_push_global at d = 1) is timed beside
+// this one from benchmarks/torch_graph_kernel_variants.py's copy of it.
 //
 // Determinism.  Float atomics add in an order that changes from run to
 // run, so the sum semiring is not bit-reproducible; min/max are exact.
@@ -69,14 +68,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 4;               // U: 32-slot steps a warp batches
-constexpr int64_t kWarpSlots = 2048;    // slots of one warp chunk
-constexpr int64_t kChunkSlots = 4096;   // previous design: slots per CTA
+constexpr int64_t kChunkSlots = 4096;   // d > 1: slots per CTA
 constexpr int64_t kSmemWindowBytes = 200 * 1024;
-// d = 1 on the global path: combine equal destinations in a shared-memory
-// table before they reach L2 (fused_push_combine)
-constexpr bool kCombine = true;
 constexpr int kTable = 28672;           // destinations a table holds (224 KB)
 constexpr int kCombineThreads = 1024;   // a combining CTA's threads
 constexpr int kCombineWarps = kCombineThreads / 32;
@@ -194,53 +188,6 @@ __device__ __forceinline__ void load_steps(
 #pragma unroll
   for (int u = 0; u < kSteps; ++u)
     src[u] = key[u] >= 0 ? __ldg(ids + key[u]) : n;
-}
-
-// ---- global window: persistent, batched, cache-hinted ------------------ //
-// Work item t (a warp chunk) -> (block b, chunk c), block-major.
-template <int R, bool W>
-__global__ void __launch_bounds__(kThreads)
-fused_push_stream(const float* __restrict__ values,
-                  const int32_t* __restrict__ widx,
-                  const int32_t* __restrict__ cidx,
-                  const float* __restrict__ ev,
-                  const uint8_t* __restrict__ mask,
-                  const int32_t* __restrict__ id_map, float* out, int64_t n,
-                  int64_t edge_budget, int64_t local_budget,
-                  int64_t block_size, int d, int64_t chunks_per_block,
-                  int64_t total) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * kWarps;
-  const uint64_t pol_stream = policy_evict_first();
-  const uint64_t pol_window = policy_evict_last();
-  for (int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       t < total; t += stride) {
-    const int64_t b = t / chunks_per_block;
-    const int64_t s0 = (t - b * chunks_per_block) * kWarpSlots;
-    const int64_t s_end =
-        s0 + kWarpSlots < edge_budget ? s0 + kWarpSlots : edge_budget;
-    const int64_t row = b * edge_budget;
-    float* win = out + b * block_size * d;
-    const int32_t* ids = id_map + b * local_budget;
-    for (int64_t base = s0; base < s_end; base += 32 * kSteps) {
-      int w[kSteps];
-      float e[kSteps];
-      int64_t src[kSteps];
-      load_steps<W>(widx, cidx, ev, mask, ids, n, local_budget, row,
-                    base + lane, s_end, pol_stream, w, e, src);
-      for (int f = 0; f < d; ++f) {
-        float v[kSteps];
-#pragma unroll
-        for (int u = 0; u < kSteps; ++u)
-          v[u] = src[u] < n ? __ldg(values + src[u] * d + f) : 0.0f;
-#pragma unroll
-        for (int u = 0; u < kSteps; ++u)
-          if (src[u] < n)
-            red_global<R>(win + (int64_t)w[u] * d + f, W ? v[u] * e[u] : v[u],
-                          pol_window);
-      }
-    }
-  }
 }
 
 // ---- global window, d = 1: combining equal destinations per CTA -------- //
@@ -380,18 +327,17 @@ fused_push_shared(const float* __restrict__ values,
   }
 }
 
-// ---- the previous global-window design (a yardstick, see the header) --- //
+// ---- global window, d > 1: one CTA per chunk of kChunkSlots slots ---- //
 template <int R, bool W>
 __global__ void __launch_bounds__(kThreads)
-fused_push_global_previous(const float* __restrict__ values,
-                           const int32_t* __restrict__ widx,
-                           const int32_t* __restrict__ cidx,
-                           const float* __restrict__ ev,
-                           const uint8_t* __restrict__ mask,
-                           const int32_t* __restrict__ id_map, float* out,
-                           int64_t n, int64_t edge_budget,
-                           int64_t local_budget, int64_t block_size, int d,
-                           int64_t chunks_per_block) {
+fused_push_global(const float* __restrict__ values,
+                  const int32_t* __restrict__ widx,
+                  const int32_t* __restrict__ cidx,
+                  const float* __restrict__ ev,
+                  const uint8_t* __restrict__ mask,
+                  const int32_t* __restrict__ id_map, float* out, int64_t n,
+                  int64_t edge_budget, int64_t local_budget,
+                  int64_t block_size, int d, int64_t chunks_per_block) {
   const int64_t b = blockIdx.x / chunks_per_block;
   const int64_t c = blockIdx.x - b * chunks_per_block;
   const int64_t row = b * edge_budget;
@@ -437,7 +383,7 @@ cudaError_t launch_epilogue(const Args& a, cudaStream_t st) {
 // and `smem` bytes of dynamic shared memory each (0 if the runtime cannot
 // say; its error is then pending)
 template <typename K>
-int64_t resident_ctas(K k, int threads = kThreads, int smem = 0) {
+int64_t resident_ctas(K k, int threads, int smem) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -484,32 +430,15 @@ cudaError_t launch_combine(const Args& a, cudaStream_t st) {
   return launch_epilogue(a, st);
 }
 
+// d = 1: the combining kernel; d > 1: one CTA per chunk
 template <int R, bool W>
-cudaError_t launch_stream(const Args& a, cudaStream_t st) {
-  if (kCombine && a.d == 1) return launch_combine<R, W>(a, st);
-  const int64_t chunks = (a.edge_budget + kWarpSlots - 1) / kWarpSlots;
-  const int64_t total = a.num_blocks * chunks;
-  if (total > 0) {
-    const int64_t ctas_needed = (total + kWarps - 1) / kWarps;
-    const int64_t resident = resident_ctas(fused_push_stream<R, W>);
-    if (resident == 0) return cudaGetLastError();
-    const int64_t grid = ctas_needed < resident ? ctas_needed : resident;
-    fused_push_stream<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
-        a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
-        a.edge_budget, a.local_budget, a.block_size, a.d, chunks, total);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return launch_epilogue(a, st);
-}
-
-template <int R, bool W>
-cudaError_t launch_previous(const Args& a, cudaStream_t st) {
+cudaError_t launch_global(const Args& a, cudaStream_t st) {
+  if (a.d == 1) return launch_combine<R, W>(a, st);
   const int64_t chunks = (a.edge_budget + kChunkSlots - 1) / kChunkSlots;
   const int64_t grid = a.num_blocks * chunks;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
   if (grid > 0) {
-    fused_push_global_previous<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
+    fused_push_global<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
         a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
         a.edge_budget, a.local_budget, a.block_size, a.d, chunks);
     cudaError_t err = cudaGetLastError();
@@ -518,43 +447,21 @@ cudaError_t launch_previous(const Args& a, cudaStream_t st) {
   return launch_epilogue(a, st);
 }
 
-enum Path { kShared = 0, kStream = 1, kPrevious = 2 };
-
-template <int R, bool W>
-cudaError_t launch_path(const Args& a, int path, cudaStream_t st) {
-  if (path == kShared) return launch_shared<R, W>(a, st);
-  if (path == kStream) return launch_stream<R, W>(a, st);
-  return launch_previous<R, W>(a, st);
-}
-
-template <int R>
-cudaError_t launch_w(const Args& a, int path, cudaStream_t st) {
-  return a.ev != nullptr ? launch_path<R, true>(a, path, st)
-                         : launch_path<R, false>(a, path, st);
-}
-
 bool window_shared(int64_t block_size, int d) {
   return block_size * d * static_cast<int64_t>(sizeof(float)) <=
          kSmemWindowBytes;
 }
 
-int run(const float* values, const int32_t* widx, const int32_t* cidx,
-        const float* ev, const uint8_t* mask, const int32_t* id_map,
-        const float* eps, float* out, int64_t n, int64_t num_blocks,
-        int64_t edge_budget, int64_t local_budget, int64_t block_size, int d,
-        int reduce, int fuse_epilogue, bool previous, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || reduce < kSum || reduce > kMax) return cudaErrorInvalidValue;
-  if (num_blocks == 0) return cudaSuccess;
-  const Args a{values, widx, cidx, ev, mask, id_map, eps, out, n,
-               num_blocks, edge_budget, local_budget, block_size, d,
-               fuse_epilogue};
-  const int path = window_shared(block_size, d)
-                       ? kShared
-                       : (previous ? kPrevious : kStream);
-  if (reduce == kSum) return launch_w<kSum>(a, path, st);
-  if (reduce == kMin) return launch_w<kMin>(a, path, st);
-  return launch_w<kMax>(a, path, st);
+template <int R, bool W>
+cudaError_t launch_path(const Args& a, cudaStream_t st) {
+  return window_shared(a.block_size, a.d) ? launch_shared<R, W>(a, st)
+                                          : launch_global<R, W>(a, st);
+}
+
+template <int R>
+cudaError_t launch_w(const Args& a, cudaStream_t st) {
+  return a.ev != nullptr ? launch_path<R, true>(a, st)
+                         : launch_path<R, false>(a, st);
 }
 
 }  // namespace
@@ -577,28 +484,17 @@ extern "C" int tocab_fused_push(const float* values, const int32_t* widx,
                                 int64_t local_budget, int64_t block_size,
                                 int d, int reduce, int fuse_epilogue,
                                 void* stream) {
-  return run(values, widx, cidx, ev, mask, id_map, eps, out, n, num_blocks,
-             edge_budget, local_budget, block_size, d, reduce, fuse_epilogue,
-             false, stream);
-}
-
-// The previous design, same arguments and result (windows that fit shared
-// memory take the shared path in both).
-extern "C" int tocab_fused_push_previous(
-    const float* values, const int32_t* widx, const int32_t* cidx,
-    const float* ev, const uint8_t* mask, const int32_t* id_map,
-    const float* eps, float* out, int64_t n, int64_t num_blocks,
-    int64_t edge_budget, int64_t local_budget, int64_t block_size, int d,
-    int reduce, int fuse_epilogue, void* stream) {
-  return run(values, widx, cidx, ev, mask, id_map, eps, out, n, num_blocks,
-             edge_budget, local_budget, block_size, d, reduce, fuse_epilogue,
-             true, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d < 1 || reduce < kSum || reduce > kMax) return cudaErrorInvalidValue;
+  if (num_blocks == 0) return cudaSuccess;
+  const Args a{values, widx, cidx, ev, mask, id_map, eps, out, n,
+               num_blocks, edge_budget, local_budget, block_size, d,
+               fuse_epilogue};
+  if (reduce == kSum) return launch_w<kSum>(a, st);
+  if (reduce == kMin) return launch_w<kMin>(a, st);
+  return launch_w<kMax>(a, st);
 }
 
 extern "C" const char* tocab_fused_push_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-extern "C" const char* tocab_fused_push_previous_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

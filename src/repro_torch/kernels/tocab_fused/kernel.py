@@ -7,12 +7,6 @@ tensors on the card, check them, allocate the output, launch on
 ``torch.cuda.current_stream()`` and count the launch in
 ``cuda_build.launches``.  A launch the CUDA runtime refuses raises: there
 is no fallback.  Nothing here runs at import time.
-
-``fused_push_cuda(..., previous=True)`` launches the push source's earlier
-global-window design, kept as a yardstick that ``chip_smoke.py`` and
-``benchmarks/torch_graph_kernel_variants.py`` time beside the current one;
-no path of the package asks for it (its launches count under
-``"fused_push_previous"``).
 """
 from __future__ import annotations
 
@@ -32,18 +26,13 @@ _REDUCE_CODE = {"sum": 0, "min": 1, "max": 2}
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
-_ENTRY_ARGS = ([_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                _I32, _I32, _I32, _P], _I32)
-
-
 def _lib(name: str) -> ctypes.CDLL:
-    entries = [f"tocab_{name}"]
-    if name == "fused_push":
-        entries.append("tocab_fused_push_previous")
-    sigs = {}
-    for entry in entries:
-        sigs[entry] = _ENTRY_ARGS
-        sigs[f"{entry}_error"] = ([_I32], ctypes.c_char_p)
+    entry = f"tocab_{name}"
+    sigs = {
+        entry: ([_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                 _I64, _I32, _I32, _I32, _P], _I32),
+        f"{entry}_error": ([_I32], ctypes.c_char_p),
+    }
     if name == "fused_push":
         sigs["tocab_fused_push_window_shared"] = ([_I64, _I32], _I32)
     return cuda_build.load(name, sigs)
@@ -60,7 +49,7 @@ def _epilogue_tensor(epilogue, device) -> Optional[torch.Tensor]:
 
 def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
             edge_vals, edge_mask, id_map, *, block_size: int, reduce: str,
-            epilogue, previous: bool = False) -> torch.Tensor:
+            epilogue) -> torch.Tensor:
     if reduce not in _REDUCE_CODE:
         raise ValueError(f"unknown reduce {reduce!r}")
     if epilogue is not None and reduce != "sum":
@@ -97,16 +86,15 @@ def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    entry = f"tocab_{name}_previous" if previous else f"tocab_{name}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
+        rc = getattr(lib, f"tocab_{name}")(
             ptr(values), ptr(window_idx), ptr(compact_idx), ptr(edge_vals),
             ptr(edge_mask), ptr(id_map), ptr(eps), ptr(out), n, nb, eb, lb,
             block_size, d, _REDUCE_CODE[reduce], int(eps is not None),
             stream)
-    cuda_build.check_launch(lib, entry, rc)
-    cuda_build.launches[f"{name}_previous" if previous else name] += 1
+    cuda_build.check_launch(lib, f"tocab_{name}", rc)
+    cuda_build.launches[name] += 1
     return out
 
 
@@ -123,11 +111,9 @@ def fused_pull_cuda(values: torch.Tensor, window_idx, compact_idx, edge_vals,
 
 def fused_push_cuda(values: torch.Tensor, window_idx, compact_idx, edge_vals,
                     edge_mask, id_map, *, block_size: int, reduce: str = "sum",
-                    epilogue: Optional[Tuple] = None,
-                    previous: bool = False) -> torch.Tensor:
+                    epilogue: Optional[Tuple] = None) -> torch.Tensor:
     """Launch the fused push kernel (arguments as :func:`fused_pull_cuda`,
-    on a push layout; ``previous=True``: the earlier design, see the module
-    docstring).  Returns f32 ``(n, d)``."""
+    on a push layout).  Returns f32 ``(n, d)``."""
     return _launch("fused_push", values, window_idx, compact_idx, edge_vals,
                    edge_mask, id_map, block_size=block_size, reduce=reduce,
-                   epilogue=epilogue, previous=previous)
+                   epilogue=epilogue)

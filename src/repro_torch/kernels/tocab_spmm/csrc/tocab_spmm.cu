@@ -24,12 +24,16 @@
 // at b*B (no copy, no padding), and keep it in L2.  A warp takes U steps of
 // 32 slots at once: the U steps' mask/cidx/widx loads issue together (all
 // of them: reading cidx/widx only where the mask is set measured slower,
-// it puts the mask load in the gathers' chain), then the U window gathers,
-// so U gathers are in flight per lane before the first segmented scan.  Edges in a block are sorted by cidx, so each step
+// it puts the mask load in the gathers' chain), then, feature by feature,
+// the U window gathers, so U gathers are in flight per lane before the
+// first segmented scan.  Edges in a block are sorted by cidx, so each step
 // reduces runs of equal cidx with a segmented shuffle scan; the run that
 // reaches the step's last lane is carried in registers into the next step
-// (the dense bin's runs average ~19 slots), and a run's sum is added to the
-// slab once per warp chunk — one atomicAdd per run, not one per step.
+// (the dense bin's runs average ~19 slots).  At d = 1 the carry lives over
+// the whole warp chunk, and a run's sum is added to the slab once per
+// chunk — one atomicAdd per run, not one per step; at d > 1 a feature's
+// carry ends with its U steps (one register a feature would not fit), so
+// the slot streams are still read once.
 // Cache policy: the slot streams are read with an L2 evict-first hint and
 // no L1 allocation, the window with an L2 evict-last hint, through L1 (the
 // rows of hub vertices are read by many edges), so the streams do not push
@@ -45,9 +49,8 @@
 //
 // The earlier design (one CTA per 4096-slot chunk, one slot per lane and
 // one gather in flight per lane, an atomic per run per 32-slot step, no
-// cache hints) is kept as tocab_spmm_previous, a yardstick that
-// chip_smoke.py and benchmarks/torch_graph_kernel_variants.py time beside
-// this one; no path of the package calls it.
+// cache hints) is timed beside this one from
+// benchmarks/torch_graph_kernel_variants.py's copy of it.
 //
 // Determinism.  The float atomics add in an order that changes from run to
 // run, so the sum is not bit-reproducible.
@@ -60,7 +63,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 4;               // U: 32-slot steps a warp batches
 constexpr int64_t kWarpSlots = 2048;    // slots of one warp chunk
-constexpr int64_t kChunkSlots = 4096;   // previous design: slots per CTA
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint64_t policy_evict_first() {
@@ -106,10 +108,10 @@ __device__ __forceinline__ float ld_window(const float* p, uint64_t pol) {
   return v;
 }
 
-// Work item t (a warp chunk) -> (id j, chunk c), id-major; a warp
-// walks its chunk once per feature f, carrying the run that crosses each
-// 32-slot step in (carry_key, carry).
-template <bool W>
+// Work item t (a warp chunk) -> (id j, chunk c), id-major.  ONE: d == 1,
+// the run that crosses a U-step batch is carried on; otherwise it is added
+// at the end of the batch, feature by feature.
+template <bool W, bool ONE>
 __global__ void __launch_bounds__(kThreads)
 tocab_spmm_stream(const float* __restrict__ values,
                   const int32_t* __restrict__ widx,
@@ -119,8 +121,9 @@ tocab_spmm_stream(const float* __restrict__ values,
                   const int32_t* __restrict__ block_ids,
                   float* __restrict__ out, int64_t num_blocks,
                   int64_t edge_budget, int64_t block_size,
-                  int64_t local_budget, int d, int64_t chunks_per_block,
+                  int64_t local_budget, int d_arg, int64_t chunks_per_block,
                   int64_t total) {
+  const int d = ONE ? 1 : d_arg;
   const int lane = threadIdx.x & 31;
   const unsigned lanes_le = kFull >> (31 - lane);
   const int64_t stride = (int64_t)gridDim.x * kWarps;
@@ -137,26 +140,26 @@ tocab_spmm_stream(const float* __restrict__ values,
     const int64_t row = b * edge_budget;
     const float* win = values + b * block_size * d;
     float* slab = out + j * local_budget * d;
-    for (int f = 0; f < d; ++f) {
-      int carry_key = -1;  // the run reaching the last step's lane 31
-      float carry = 0.0f;
-      for (int64_t base = s0; base < s_end; base += 32 * kSteps) {
-        int key[kSteps], w[kSteps];
-        float e[kSteps];
+    int carry_key = -1;  // the run reaching the last step's lane 31
+    float carry = 0.0f;
+    for (int64_t base = s0; base < s_end; base += 32 * kSteps) {
+      int key[kSteps], w[kSteps];
+      float e[kSteps];
 #pragma unroll
-        for (int u = 0; u < kSteps; ++u) {
-          const int64_t s = base + u * 32 + lane;
-          key[u] = -1;  // -1: no real slot here
-          w[u] = 0;
-          e[u] = 1.0f;
-          if (s < s_end) {
-            const int m = ld_stream(mask + row + s, pol_stream);
-            const int k = ld_stream(cidx + row + s, pol_stream);
-            w[u] = ld_stream(widx + row + s, pol_stream);
-            if (W) e[u] = ld_stream(ev + row + s, pol_stream);
-            if (m && k >= 0 && k < local_budget) key[u] = k;
-          }
+      for (int u = 0; u < kSteps; ++u) {
+        const int64_t s = base + u * 32 + lane;
+        key[u] = -1;  // -1: no real slot here
+        w[u] = 0;
+        e[u] = 1.0f;
+        if (s < s_end) {
+          const int m = ld_stream(mask + row + s, pol_stream);
+          const int k = ld_stream(cidx + row + s, pol_stream);
+          w[u] = ld_stream(widx + row + s, pol_stream);
+          if (W) e[u] = ld_stream(ev + row + s, pol_stream);
+          if (m && k >= 0 && k < local_budget) key[u] = k;
         }
+      }
+      for (int f = 0; f < d; ++f) {
         float v[kSteps];
 #pragma unroll
         for (int u = 0; u < kSteps; ++u)
@@ -187,64 +190,14 @@ tocab_spmm_stream(const float* __restrict__ values,
           carry_key = __shfl_sync(kFull, k, 31);
           carry = __shfl_sync(kFull, x, 31);
         }
+        if (!ONE) {  // this feature's run ends with the batch
+          if (carry_key >= 0 && lane == 0)
+            atomicAdd(slab + (int64_t)carry_key * d + f, carry);
+          carry_key = -1;
+        }
       }
-      if (carry_key >= 0 && lane == 0)
-        atomicAdd(slab + (int64_t)carry_key * d + f, carry);
     }
-  }
-}
-
-// ---- the previous design (a yardstick, see the header) ----------------- //
-template <bool W>
-__global__ void __launch_bounds__(kThreads)
-tocab_spmm_previous_kernel(const float* __restrict__ values,
-                           const int32_t* __restrict__ widx,
-                           const int32_t* __restrict__ cidx,
-                           const float* __restrict__ ev,
-                           const uint8_t* __restrict__ mask,
-                           const int32_t* __restrict__ block_ids,
-                           float* __restrict__ out, int64_t num_blocks,
-                           int64_t edge_budget, int64_t block_size,
-                           int64_t local_budget, int d,
-                           int64_t chunks_per_block) {
-  const int64_t j = blockIdx.x / chunks_per_block;
-  const int64_t c = blockIdx.x - j * chunks_per_block;
-  const int64_t b = block_ids[j];
-  if (b < 0 || b >= num_blocks) return;  // the wrapper validates the ids
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t lo = b * block_size;
-  const int64_t row = b * edge_budget;
-  float* slab = out + j * local_budget * d;
-  const int64_t s_end =
-      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
-  const unsigned lanes_le = kFull >> (31 - lane);
-  // base is the same for the whole warp, so every lane takes the loop and
-  // the full-mask shuffles below are well defined
-  for (int64_t base = c * kChunkSlots + warp * 32; base < s_end;
-       base += kThreads) {
-    const int64_t s = base + lane;
-    int key = -1;  // -1: no real slot here
-    if (s < s_end && mask[row + s]) {
-      const int k = cidx[row + s];
-      if (k >= 0 && k < local_budget) key = k;
-    }
-    const bool live = key >= 0;
-    const int64_t src = live ? lo + widx[row + s] : 0;
-    const float w = (W && live) ? ev[row + s] : 1.0f;
-    const int prev = __shfl_up_sync(kFull, key, 1);
-    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
-    const int seg = 31 - __clz(heads & lanes_le);
-    const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
-    for (int f = 0; f < d; ++f) {
-      float v = live ? values[src * d + f] : 0.0f;
-      if (W) v *= w;
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(kFull, v, off);
-        if (lane - off >= seg) v += t;
-      }
-      if (tail && live) atomicAdd(slab + (int64_t)key * d + f, v);
-    }
+    if (ONE && carry_key >= 0 && lane == 0) atomicAdd(slab + carry_key, carry);
   }
 }
 
@@ -262,7 +215,7 @@ int64_t resident_ctas(K k) {
   return (int64_t)sms * (per_sm > 0 ? per_sm : 1);
 }
 
-template <bool W>
+template <bool W, bool ONE>
 cudaError_t launch_stream(const float* values, const int32_t* widx,
                           const int32_t* cidx, const float* ev,
                           const uint8_t* mask, const int32_t* block_ids,
@@ -272,48 +225,13 @@ cudaError_t launch_stream(const float* values, const int32_t* widx,
   const int64_t chunks = (edge_budget + kWarpSlots - 1) / kWarpSlots;
   const int64_t total = num_ids * chunks;
   const int64_t ctas_needed = (total + kWarps - 1) / kWarps;
-  const int64_t resident = resident_ctas(tocab_spmm_stream<W>);
+  const int64_t resident = resident_ctas(tocab_spmm_stream<W, ONE>);
   if (resident == 0) return cudaGetLastError();
   const int64_t grid = ctas_needed < resident ? ctas_needed : resident;
-  tocab_spmm_stream<W><<<(unsigned)grid, kThreads, 0, st>>>(
+  tocab_spmm_stream<W, ONE><<<(unsigned)grid, kThreads, 0, st>>>(
       values, widx, cidx, ev, mask, block_ids, out, num_blocks, edge_budget,
       block_size, local_budget, d, chunks, total);
   return cudaGetLastError();
-}
-
-template <bool W>
-cudaError_t launch_previous(const float* values, const int32_t* widx,
-                            const int32_t* cidx, const float* ev,
-                            const uint8_t* mask, const int32_t* block_ids,
-                            float* out, int64_t num_ids, int64_t num_blocks,
-                            int64_t edge_budget, int64_t block_size,
-                            int64_t local_budget, int d, cudaStream_t st) {
-  const int64_t chunks = (edge_budget + kChunkSlots - 1) / kChunkSlots;
-  const int64_t grid = num_ids * chunks;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  tocab_spmm_previous_kernel<W><<<(unsigned)grid, kThreads, 0, st>>>(
-      values, widx, cidx, ev, mask, block_ids, out, num_blocks, edge_budget,
-      block_size, local_budget, d, chunks);
-  return cudaGetLastError();
-}
-
-int run(const float* values, const int32_t* widx, const int32_t* cidx,
-        const float* ev, const uint8_t* mask, const int32_t* block_ids,
-        float* out, int64_t num_ids, int64_t num_blocks, int64_t edge_budget,
-        int64_t block_size, int64_t local_budget, int d, bool previous,
-        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1) return cudaErrorInvalidValue;
-  if (num_ids == 0 || edge_budget == 0 || local_budget == 0)
-    return cudaSuccess;
-#define TS_ARGS values, widx, cidx, ev, mask, block_ids, out, num_ids, \
-    num_blocks, edge_budget, block_size, local_budget, d, st
-  if (previous)
-    return ev != nullptr ? launch_previous<true>(TS_ARGS)
-                         : launch_previous<false>(TS_ARGS);
-  return ev != nullptr ? launch_stream<true>(TS_ARGS)
-                       : launch_stream<false>(TS_ARGS);
-#undef TS_ARGS
 }
 
 }  // namespace
@@ -327,29 +245,20 @@ extern "C" int tocab_spmm(const float* values, const int32_t* widx,
                           float* out, int64_t num_ids, int64_t num_blocks,
                           int64_t edge_budget, int64_t block_size,
                           int64_t local_budget, int d, void* stream) {
-  return run(values, widx, cidx, ev, mask, block_ids, out, num_ids,
-             num_blocks, edge_budget, block_size, local_budget, d, false,
-             stream);
-}
-
-// The previous design, same arguments and result.
-extern "C" int tocab_spmm_previous(const float* values, const int32_t* widx,
-                                   const int32_t* cidx, const float* ev,
-                                   const uint8_t* mask,
-                                   const int32_t* block_ids, float* out,
-                                   int64_t num_ids, int64_t num_blocks,
-                                   int64_t edge_budget, int64_t block_size,
-                                   int64_t local_budget, int d,
-                                   void* stream) {
-  return run(values, widx, cidx, ev, mask, block_ids, out, num_ids,
-             num_blocks, edge_budget, block_size, local_budget, d, true,
-             stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d < 1) return cudaErrorInvalidValue;
+  if (num_ids == 0 || edge_budget == 0 || local_budget == 0)
+    return cudaSuccess;
+#define TS_ARGS values, widx, cidx, ev, mask, block_ids, out, num_ids, \
+    num_blocks, edge_budget, block_size, local_budget, d, st
+  if (d == 1)
+    return ev != nullptr ? launch_stream<true, true>(TS_ARGS)
+                         : launch_stream<false, true>(TS_ARGS);
+  return ev != nullptr ? launch_stream<true, false>(TS_ARGS)
+                       : launch_stream<false, false>(TS_ARGS);
+#undef TS_ARGS
 }
 
 extern "C" const char* tocab_spmm_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-extern "C" const char* tocab_spmm_previous_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

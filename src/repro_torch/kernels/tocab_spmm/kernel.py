@@ -7,12 +7,6 @@ tensors on the card, checks them, allocates the zero-filled slab, launches
 on ``torch.cuda.current_stream()`` and counts the launch in
 ``cuda_build.launches["tocab_spmm"]``.  A launch the CUDA runtime refuses
 raises: there is no fallback.  Nothing here runs at import time.
-
-``tocab_spmm_cuda(..., previous=True)`` launches the source's earlier
-design, kept as a yardstick that ``chip_smoke.py`` and
-``benchmarks/torch_graph_kernel_variants.py`` time beside the current one;
-no path of the package asks for it (its launches count under
-``"tocab_spmm_previous"``).
 """
 from __future__ import annotations
 
@@ -27,13 +21,10 @@ from repro_torch.kernels.cuda_build import check_tensor
 __all__ = ["tocab_spmm_cuda"]
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGS = ([_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _P],
-         _I32)
 _SIGNATURES = {
-    "tocab_spmm": _ARGS,
+    "tocab_spmm": ([_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                    _I64, _I32, _P], _I32),
     "tocab_spmm_error": ([_I32], ctypes.c_char_p),
-    "tocab_spmm_previous": _ARGS,
-    "tocab_spmm_previous_error": ([_I32], ctypes.c_char_p),
 }
 
 
@@ -41,15 +32,12 @@ def tocab_spmm_cuda(values: torch.Tensor, window_idx: torch.Tensor,
                     compact_idx: torch.Tensor, edge_mask: torch.Tensor,
                     edge_vals: Optional[torch.Tensor],
                     block_ids: torch.Tensor, *, block_size: int,
-                    local_budget: int, previous: bool = False
-                    ) -> torch.Tensor:
+                    local_budget: int) -> torch.Tensor:
     """Launch the kernel: ``values`` f32 ``(n, d)`` on the card, the
     layout's slabs as stored (int32 indices, bool mask, f32 edge values or
     ``None`` for unweighted), ``block_ids`` int32 ``(k,)`` on the card with
     every id in ``[0, num_blocks)`` (ids outside are skipped).  Returns f32
-    ``(k, local_budget, d)``; arguments as :func:`.ref.tocab_spmm_ref`.
-    ``previous=True`` launches the earlier design instead (see the module
-    docstring)."""
+    ``(k, local_budget, d)``; arguments as :func:`.ref.tocab_spmm_ref`."""
     if not values.is_cuda:
         raise ValueError("tocab_spmm: values must be a CUDA tensor")
     if values.ndim != 2:
@@ -78,13 +66,12 @@ def tocab_spmm_cuda(values: torch.Tensor, window_idx: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    entry = "tocab_spmm_previous" if previous else "tocab_spmm"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
+        rc = lib.tocab_spmm(
             ptr(values), ptr(window_idx), ptr(compact_idx), ptr(edge_vals),
             ptr(edge_mask), ptr(block_ids), ptr(out), k, nb, eb, block_size,
             local_budget, d, stream)
-    cuda_build.check_launch(lib, entry, rc)
-    cuda_build.launches[entry] += 1
+    cuda_build.check_launch(lib, "tocab_spmm", rc)
+    cuda_build.launches["tocab_spmm"] += 1
     return out

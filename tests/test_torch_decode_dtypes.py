@@ -23,8 +23,11 @@ numpy inputs and parameters:
 The tests marked ``cuda`` run the same calls on the card, where the
 ``flash_decode`` kernel reads the fp32 query itself (split into two bf16
 halves on the tensor-core route, so q is held to 2⁻¹⁶): one launch a call,
-repeats bit-identical, and the bf16 tolerance against the plain version.
-They skip without a card.
+repeats bit-identical; an fp32 query's output within rtol 2⁻¹³ and atol
+2⁻¹³ of the mean |entry| of the plain version (three bits above the
+halves, four below bf16, so that a q rounded to bf16 fails — checked on
+the CPU and on the card), a bf16 one within the bf16 tolerance.  They skip
+without a card.
 """
 import dataclasses
 
@@ -41,6 +44,7 @@ from repro_torch.models import transformer as tfm
 
 FP32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_RTOL, BF16_ATOL_OF_MEAN = 2.0 ** -7, 2.0 ** -6
+FP32_Q_RTOL = FP32_Q_ATOL_OF_MEAN = 2.0 ** -13
 BF16, F32 = torch.bfloat16, torch.float32
 
 
@@ -53,6 +57,14 @@ def _bf16_close(out, ref):
     ref = ref.float()
     atol = BF16_ATOL_OF_MEAN * float(ref.abs().mean())
     torch.testing.assert_close(out.float(), ref, rtol=BF16_RTOL, atol=atol)
+
+
+def _fp32_q_share(out, ref):
+    """The worst entry's share of the fp32-query tolerance (≤ 1 passes)."""
+    ref = ref.float()
+    atol = FP32_Q_ATOL_OF_MEAN * float(ref.abs().mean())
+    return float(((out.float() - ref).abs()
+                  / (atol + FP32_Q_RTOL * ref.abs())).max())
 
 
 def _t(a):
@@ -113,6 +125,28 @@ def test_flash_decode_mixed_dtypes_match_reference(q_dtype, cache_dtype, B,
             torch.testing.assert_close(out, ref, **FP32_TOL)
         else:
             _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,kv_len,cap", [
+    (8, 32, 4, 576, 64, 576, 0.0), (2, 4, 1, 128, 128, 65, 30.0),
+    (1, 8, 1, 300, 16, 151, 0.0),
+])
+def test_fp32_query_tolerance_rejects_bf16_rounded_query(B, Hq, Hkv, S, D,
+                                                         kv_len, cap):
+    """The tolerance the card tests hold an fp32 query's decode to: q as
+    the tensor-core route reads it (two bf16 halves, 2⁻¹⁶) passes it with
+    room, and q rounded to bf16 fails it — so a kernel that dropped q's
+    low half could not pass."""
+    seed = S + D
+    q = torch.from_numpy(_np(B, Hq, 1, D, seed=seed))
+    k, v = (torch.from_numpy(_np(B, Hkv, S, D, seed=seed + i)).to(BF16)
+            for i in (1, 2))
+    hi = q.to(BF16).float()
+    halves = hi + (q - hi).to(BF16).float()
+    kw = dict(kv_len=kv_len, softcap=cap)
+    ref = flash_decode_ref(q, k, v, **kw)
+    assert _fp32_q_share(flash_decode_ref(halves, k, v, **kw), ref) < 0.25
+    assert _fp32_q_share(flash_decode_ref(hi, k, v, **kw), ref) > 4.0
 
 
 # --------------------------------------------------------------------- #
@@ -197,7 +231,8 @@ def card():
 def test_cuda_flash_decode_mixed_dtypes(card, q_dtype, cache_dtype, D):
     """D 64 and 128 with a bf16 cache take the tensor-core route, D 16 the
     FMA one; one launch a call, repeats bit-identical, output in q's
-    dtype."""
+    dtype.  An fp32 q within the fp32-query tolerance, which the same q
+    rounded to bf16 fails."""
     gen = torch.Generator(device=card).manual_seed(D)
     q = torch.randn(8, 32, 1, D, generator=gen, device=card).to(q_dtype)
     k, v = (torch.randn(8, 4, 576, D, generator=gen, device=card)
@@ -209,8 +244,15 @@ def test_cuda_flash_decode_mixed_dtypes(card, q_dtype, cache_dtype, D):
         assert cuda_build.launches["flash_decode"] == before + 2
         assert outs[0].dtype == q_dtype and outs[0].shape == q.shape
         assert torch.equal(outs[0], outs[1])
-        _bf16_close(outs[0], flash_decode_ref(q, k, v, kv_len=kv_len,
-                                              softcap=cap))
+        ref = flash_decode_ref(q, k, v, kv_len=kv_len, softcap=cap)
+        if q_dtype == F32:
+            assert _fp32_q_share(outs[0], ref) <= 1.0
+            if kv_len > 1:  # one slot's weight is 1 whatever q is
+                rounded = flash_decode_ref(q.to(BF16).float(), k, v,
+                                           kv_len=kv_len, softcap=cap)
+                assert _fp32_q_share(rounded, ref) > 1.0
+        else:
+            _bf16_close(outs[0], ref)
 
 
 @pytest.mark.cuda

@@ -12,7 +12,6 @@ nothing of JAX, so ``pytest -m cuda tests/test_torch_fused.py`` runs on a
 machine that has none.
 """
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -321,8 +320,8 @@ def test_cuda_kernel_refuses_what_it_cannot_run(cuda_layouts):
 def _edge_case_graph(seed=1, block=65536):
     """Three blocks of ``block`` rows, the middle one with no edge in either
     direction; source 5 pushes to 6000 destinations and destination 7
-    pulls from 6000 sources (runs of one compact id longer than the push
-    kernel's 2048-slot warp chunk), over 200,000 random edges among the
+    pulls from 6000 sources (runs of one compact id longer than the d > 1
+    push kernel's 4096-slot chunk), over 200,000 random edges among the
     outer blocks (as chip_smoke.py's edge-case graph)."""
     rng = np.random.default_rng(seed)
     n = 3 * block
@@ -337,24 +336,15 @@ def _edge_case_graph(seed=1, block=65536):
                         dedup=True)
 
 
-def _check_push(bg, n, reduce, launch=None):
-    """The push kernel (or ``launch``) against the plain version over d
-    None and 8, weighted and unweighted, with and without the epilogue."""
+def _check_push(bg, n, reduce):
+    """The push kernel against the plain version over d None and 8,
+    weighted and unweighted, with and without the epilogue."""
     for d in (None, 8):
         x = torch.from_numpy(
             _np_vals(n, d, seed=19, signed=reduce != "sum")).cuda()
         for combine in (None, T.UNWEIGHTED):
             for eps in ((None, (0.85, 0.01)) if reduce == "sum" else (None,)):
-                if launch is None:
-                    out = fused_push(bg, x, reduce, combine, eps)
-                else:
-                    x2 = x[:, None] if d is None else x
-                    out = launch(x2, bg.window_idx, bg.compact_idx,
-                                 None if combine is T.UNWEIGHTED
-                                 else bg.edge_vals, bg.edge_mask, bg.id_map,
-                                 block_size=bg.block_size, reduce=reduce,
-                                 epilogue=eps)
-                    out = out[:, 0] if d is None else out
+                out = fused_push(bg, x, reduce, combine, eps)
                 ref = fused_push_ref(bg, x, reduce, combine, eps)
                 torch.cuda.synchronize()
                 if reduce == "sum":
@@ -367,15 +357,15 @@ def _check_push(bg, n, reduce, launch=None):
 @pytest.mark.parametrize("reduce", ["sum", "min", "max"])
 def test_cuda_push_edge_cases(reduce):
     """The global-window push on the edge-case graph: an empty block, a run
-    longer than a warp chunk, padded id_map entries, and a slab padded to
-    no multiple of a chunk or of a warp's 8 batched 32-slot steps
-    (pad_edges_to=1)."""
+    longer than the d > 1 kernel's 4096-slot chunk, padded id_map entries,
+    and a slab padded to no multiple of a chunk or of a warp's 4 batched
+    32-slot steps (pad_edges_to=1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     g = _edge_case_graph()
     bg = T.build_blocked(g, block_size=65536, direction="push",
                          pad_edges_to=1)
-    assert int(bg.n_edges[1]) == 0 and bg.edge_budget % 256
+    assert int(bg.n_edges[1]) == 0 and bg.edge_budget % 128
     assert int(bg.n_local.min()) < bg.local_budget  # padded id_map entries
     before = cuda_build.launches["fused_push"]
     _check_push(bg, g.n, reduce)
@@ -384,10 +374,10 @@ def test_cuda_push_edge_cases(reduce):
 
 @pytest.mark.cuda
 def test_cuda_push_more_chunks_than_resident_warps():
-    """Scale 22 (67 M edges): more warp chunks of 2048 slots than the
-    persistent grid has warps (132 SMs x 8 CTAs x 8 warps at most), and
-    more CTA chunks of 65,536 slots (the d = 1 combining kernel) than it
-    has CTAs at two a SM, so every warp and CTA walks several.  The sum is
+    """Scale 22 (67 M edges): more CTA chunks of 65,536 slots (the d = 1
+    combining kernel) than its persistent grid has CTAs (one a SM; two
+    allowed for), so every CTA walks several and flushes its table between
+    blocks.  The sum is
     held against the plain version run in float64: in fp32 it adds the
     ~150,000 messages of a hub row one atomic at a time, and its own
     rounding can then exceed rtol 1e-4 on a few rows."""
@@ -395,7 +385,6 @@ def test_cuda_push_more_chunks_than_resident_warps():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     g = T.rmat_graph(scale=22, edge_factor=16, seed=5)
     bg = T.build_blocked(g, block_size=1 << 21, direction="push")
-    assert bg.num_blocks * bg.edge_budget > 132 * 64 * 2048
     assert bg.num_blocks * bg.edge_budget > 132 * 2 * 65536
     x = torch.from_numpy(_np_vals(g.n, seed=20)).cuda()
     for reduce in ("sum", "max"):
@@ -407,22 +396,3 @@ def test_cuda_push_more_chunks_than_resident_warps():
         else:
             assert torch.equal(out, fused_push_ref(bg, x, reduce,
                                                    T.UNWEIGHTED))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
-def test_cuda_push_previous_design_matches_plain(reduce):
-    """The earlier design, kept as a yardstick, still computes the same
-    function (and counts its launches apart from fused_push's)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    from repro_torch.kernels.tocab_fused.kernel import fused_push_cuda
-
-    g = _edge_case_graph(seed=2)
-    bg = T.build_blocked(g, block_size=65536, direction="push")
-    before = dict(cuda_build.launches)
-    _check_push(bg, g.n, reduce,
-                launch=functools.partial(fused_push_cuda, previous=True))
-    assert cuda_build.launches["fused_push"] == before.get("fused_push", 0)
-    assert cuda_build.launches["fused_push_previous"] > \
-        before.get("fused_push_previous", 0)

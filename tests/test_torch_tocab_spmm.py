@@ -280,12 +280,10 @@ def _edge_case_graph(seed=1, block=65536):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("previous", [False, True], ids=["as_is", "previous"])
-def test_cuda_kernel_edge_cases(cuda_graph, previous):
+def test_cuda_kernel_edge_cases(cuda_graph):
     """Every block of the edge-case graph, the empty one included, with a
     run longer than a warp chunk and a slab padded to no multiple of a
-    chunk or a 32-slot step; d 1 and 8, weighted and unweighted; the
-    earlier design too, counted apart."""
+    chunk or a 32-slot step; d 1 and 8, weighted and unweighted."""
     from repro_torch.kernels.tocab_spmm.kernel import tocab_spmm_cuda
     from repro_torch.kernels.tocab_spmm.ref import tocab_spmm_ref
 
@@ -293,17 +291,16 @@ def test_cuda_kernel_edge_cases(cuda_graph, previous):
     bg = T.build_blocked(g, block_size=65536, pad_edges_to=1)
     assert int(bg.n_edges[1]) == 0 and bg.edge_budget % 256
     ids = torch.arange(bg.num_blocks, dtype=torch.int32, device="cuda")
-    name = "tocab_spmm_previous" if previous else "tocab_spmm"
     for d in (1, 8):
         x = torch.from_numpy(_np_vals(g.n, d, seed=15)).cuda()
         for ev in (bg.edge_vals, None):
             args = (x, bg.window_idx, bg.compact_idx, bg.edge_mask, ev, ids)
             kw = dict(block_size=bg.block_size, local_budget=bg.local_budget)
-            before = cuda_build.launches[name]
-            out = tocab_spmm_cuda(*args, previous=previous, **kw)
+            before = cuda_build.launches["tocab_spmm"]
+            out = tocab_spmm_cuda(*args, **kw)
             ref = tocab_spmm_ref(*args, **kw)
             torch.cuda.synchronize()
-            assert cuda_build.launches[name] == before + 1
+            assert cuda_build.launches["tocab_spmm"] == before + 1
             assert not bool(out[1].any())
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
 
