@@ -48,9 +48,9 @@ flags and called through the package's own launcher:
   2048 as is), ``nonpersistent`` (one CTA per 8 warp chunks),
   ``streams_l1`` (slot streams through L1, no L2 policy),
   ``window_normal`` (the window's L2 policy evict-normal),
-  ``window_no_l1`` (window gathers without L1 allocation); and ``as_is``
-  against ``previous`` at d = 8 (``(n, 8)`` values), where the slot
-  streams are read once for eight features.
+  ``window_no_l1`` (window gathers without L1 allocation);
+* both sources as they are at d = 8 (``(n, 8)`` values), where each takes
+  its d > 1 kernel.
 
 Every variant is held against the plain version at the main shapes
 (``chip_smoke.py``'s ``SUM_RTOL`` and atol); ``fused_pull`` and a
@@ -920,21 +920,25 @@ def main(argv=None) -> int:
     cuda_build._LIBS.pop("tocab_spmm", None)
     del ref
 
-    # d = 8: the slot streams read once for eight features, against the
-    # earlier design, which also reads them once
+    # d = 8, the other side of both kernels' d = 1 / d > 1 choice: the
+    # package's sources as they are
     x8 = torch.rand((n, 8), generator=torch.Generator().manual_seed(
         cs.SEED)).cuda()
-    sargs8 = (x8,) + sargs[1:]
-    ref = tocab_spmm_ref(*sargs8, **skw)
-    for name, launch in (("previous", previous.tocab_spmm),
-                         ("as_is", sk.tocab_spmm_cuda)):
-        ms = cs.cuda_ms(lambda: launch(*sargs8, **skw), reps=5, warmup=1)
-        err, atol, used = cs.check_close(f"tocab_spmm d=8 {name}",
-                                         launch(*sargs8, **skw), ref, "sum")
-        emit({"phase": "variant", "kernel": "tocab_spmm", "d": 8,
-              "variant": name, "ms": ms, "max_abs_err": err,
+    for kernel, fn, plain in (
+            ("fused_push", lambda: fk.fused_push_cuda(
+                x8, push.window_idx, push.compact_idx, None, push.edge_mask,
+                push.id_map, block_size=B, reduce="sum"),
+             lambda: fused_push_ref(push, x8, "sum", UNWEIGHTED)),
+            ("tocab_spmm", lambda: sk.tocab_spmm_cuda(x8, *sargs[1:], **skw),
+             lambda: tocab_spmm_ref(x8, *sargs[1:], **skw))):
+        ms = cs.cuda_ms(fn, reps=5, warmup=1)
+        err, atol, used = cs.check_close(f"{kernel} d=8", fn(), plain(),
+                                         "sum")
+        emit({"phase": "variant", "kernel": kernel, "d": 8,
+              "variant": "as_is", "ms": ms, "max_abs_err": err,
               "tolerance_used": used}, out)
-    del ref, x8
+    del x8
+
     emit({"phase": "done", "launches": dict(cuda_build.launches)}, out)
     return 0
 

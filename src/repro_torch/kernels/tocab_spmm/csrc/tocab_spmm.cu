@@ -24,21 +24,26 @@
 // at b*B (no copy, no padding), and keep it in L2.  A warp takes U steps of
 // 32 slots at once: the U steps' mask/cidx/widx loads issue together (all
 // of them: reading cidx/widx only where the mask is set measured slower,
-// it puts the mask load in the gathers' chain), then, feature by feature,
-// the U window gathers, so U gathers are in flight per lane before the
-// first segmented scan.  Edges in a block are sorted by cidx, so each step
-// reduces runs of equal cidx with a segmented shuffle scan; the run that
-// reaches the step's last lane is carried in registers into the next step
-// (the dense bin's runs average ~19 slots).  At d = 1 the carry lives over
-// the whole warp chunk, and a run's sum is added to the slab once per
-// chunk — one atomicAdd per run, not one per step; at d > 1 a feature's
-// carry ends with its U steps (one register a feature would not fit), so
-// the slot streams are still read once.
-// Cache policy: the slot streams are read with an L2 evict-first hint and
-// no L1 allocation, the window with an L2 evict-last hint, through L1 (the
-// rows of hub vertices are read by many edges), so the streams do not push
-// the window out of L2.  The TPU kernel's two modes compute one function;
-// this kernel serves both.
+// it puts the mask load in the gathers' chain), then the U window gathers,
+// so U gathers are in flight per lane before the first segmented scan.
+// Edges in a block are sorted by cidx, so each step reduces runs of equal
+// cidx with a segmented shuffle scan; the run that reaches the step's last
+// lane is carried in registers into the next step (the dense bin's runs
+// average ~19 slots), and a run's sum is added to the slab once per warp
+// chunk — one atomicAdd per run, not one per step.  That is d = 1
+// (tocab_spmm_stream), the main path's width.  For d > 1
+// (tocab_spmm_rows) CTAs take contiguous chunks of kChunkSlots slots,
+// chunk fastest-varying in the grid, one slot a lane: each lane gathers
+// its row feature by feature, right after one another, and each 32-slot
+// step adds its runs with one atomic each.  The streaming design, its slot
+// streams read once for all features, measured 1.6x slower than this one
+// on an H100 at d = 8 on the scale-24 dense block, whose 8-wide window
+// (210 MB) does not fit L2.
+// Cache policy (d = 1): the slot streams are read with an L2 evict-first
+// hint and no L1 allocation, the window with an L2 evict-last hint,
+// through L1 (the rows of hub vertices are read by many edges), so the
+// streams do not push the window out of L2.  The TPU kernel's two modes
+// compute one function; this kernel serves both.
 //
 // Bound.  Bytes: widx, cidx and mask per slot (9 B; 13 B weighted), one read
 // of each window row the edges touch, one write per slab row.  One add (and
@@ -47,10 +52,8 @@
 // serves per second — and whether the window stays in L2, since a gather
 // that misses reads a 32-byte sector from device memory.
 //
-// The earlier design (one CTA per 4096-slot chunk, one slot per lane and
-// one gather in flight per lane, an atomic per run per 32-slot step, no
-// cache hints) is timed beside this one from
-// benchmarks/torch_graph_kernel_variants.py's copy of it.
+// The earlier d = 1 design (tocab_spmm_rows at d = 1) is timed beside this
+// one from benchmarks/torch_graph_kernel_variants.py's copy of it.
 //
 // Determinism.  The float atomics add in an order that changes from run to
 // run, so the sum is not bit-reproducible.
@@ -63,6 +66,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 4;               // U: 32-slot steps a warp batches
 constexpr int64_t kWarpSlots = 2048;    // slots of one warp chunk
+constexpr int64_t kChunkSlots = 4096;   // d > 1: slots per CTA
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint64_t policy_evict_first() {
@@ -108,10 +112,10 @@ __device__ __forceinline__ float ld_window(const float* p, uint64_t pol) {
   return v;
 }
 
-// Work item t (a warp chunk) -> (id j, chunk c), id-major.  ONE: d == 1,
-// the run that crosses a U-step batch is carried on; otherwise it is added
-// at the end of the batch, feature by feature.
-template <bool W, bool ONE>
+// ---- d = 1: persistent, batched, cache-hinted ------------------------- //
+// Work item t (a warp chunk) -> (id j, chunk c), id-major; the run that
+// crosses each 32-slot step is carried in (carry_key, carry).
+template <bool W>
 __global__ void __launch_bounds__(kThreads)
 tocab_spmm_stream(const float* __restrict__ values,
                   const int32_t* __restrict__ widx,
@@ -121,9 +125,8 @@ tocab_spmm_stream(const float* __restrict__ values,
                   const int32_t* __restrict__ block_ids,
                   float* __restrict__ out, int64_t num_blocks,
                   int64_t edge_budget, int64_t block_size,
-                  int64_t local_budget, int d_arg, int64_t chunks_per_block,
+                  int64_t local_budget, int64_t chunks_per_block,
                   int64_t total) {
-  const int d = ONE ? 1 : d_arg;
   const int lane = threadIdx.x & 31;
   const unsigned lanes_le = kFull >> (31 - lane);
   const int64_t stride = (int64_t)gridDim.x * kWarps;
@@ -138,8 +141,8 @@ tocab_spmm_stream(const float* __restrict__ values,
     const int64_t s_end =
         s0 + kWarpSlots < edge_budget ? s0 + kWarpSlots : edge_budget;
     const int64_t row = b * edge_budget;
-    const float* win = values + b * block_size * d;
-    float* slab = out + j * local_budget * d;
+    const float* win = values + b * block_size;
+    float* slab = out + j * local_budget;
     int carry_key = -1;  // the run reaching the last step's lane 31
     float carry = 0.0f;
     for (int64_t base = s0; base < s_end; base += 32 * kSteps) {
@@ -159,45 +162,89 @@ tocab_spmm_stream(const float* __restrict__ values,
           if (m && k >= 0 && k < local_budget) key[u] = k;
         }
       }
-      for (int f = 0; f < d; ++f) {
-        float v[kSteps];
+      float v[kSteps];
 #pragma unroll
-        for (int u = 0; u < kSteps; ++u)
-          v[u] = key[u] >= 0
-                     ? ld_window(win + (int64_t)w[u] * d + f, pol_window)
-                     : 0.0f;
+      for (int u = 0; u < kSteps; ++u)
+        v[u] = key[u] >= 0 ? ld_window(win + w[u], pol_window) : 0.0f;
 #pragma unroll
-        for (int u = 0; u < kSteps; ++u) {
-          const int k = key[u];
-          float x = key[u] >= 0 ? (W ? v[u] * e[u] : v[u]) : 0.0f;
-          // the carried run continues at lane 0, or is finished: add it
-          const int k0 = __shfl_sync(kFull, k, 0);
-          if (carry_key >= 0 && carry_key != k0 && lane == 0)
-            atomicAdd(slab + (int64_t)carry_key * d + f, carry);
-          if (lane == 0 && k == carry_key) x += carry;
-          // runs of equal key: the head is the first lane of a run, the
-          // tail the last; the tail ends up holding the run's total
-          const int prev = __shfl_up_sync(kFull, k, 1);
-          const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != k);
-          const int seg = 31 - __clz(heads & lanes_le);
+      for (int u = 0; u < kSteps; ++u) {
+        const int k = key[u];
+        float x = key[u] >= 0 ? (W ? v[u] * e[u] : v[u]) : 0.0f;
+        // the carried run continues at lane 0, or is finished: add it
+        const int k0 = __shfl_sync(kFull, k, 0);
+        if (carry_key >= 0 && carry_key != k0 && lane == 0)
+          atomicAdd(slab + carry_key, carry);
+        if (lane == 0 && k == carry_key) x += carry;
+        // runs of equal key: the head is the first lane of a run, the
+        // tail the last; the tail ends up holding the run's total
+        const int prev = __shfl_up_sync(kFull, k, 1);
+        const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != k);
+        const int seg = 31 - __clz(heads & lanes_le);
 #pragma unroll
-          for (int off = 1; off < 32; off <<= 1) {
-            const float y = __shfl_up_sync(kFull, x, off);
-            if (lane - off >= seg) x += y;
-          }
-          const bool tail = lane < 31 && ((heads >> (lane + 1)) & 1u);
-          if (tail && k >= 0) atomicAdd(slab + (int64_t)k * d + f, x);
-          carry_key = __shfl_sync(kFull, k, 31);
-          carry = __shfl_sync(kFull, x, 31);
+        for (int off = 1; off < 32; off <<= 1) {
+          const float y = __shfl_up_sync(kFull, x, off);
+          if (lane - off >= seg) x += y;
         }
-        if (!ONE) {  // this feature's run ends with the batch
-          if (carry_key >= 0 && lane == 0)
-            atomicAdd(slab + (int64_t)carry_key * d + f, carry);
-          carry_key = -1;
-        }
+        const bool tail = lane < 31 && ((heads >> (lane + 1)) & 1u);
+        if (tail && k >= 0) atomicAdd(slab + k, x);
+        carry_key = __shfl_sync(kFull, k, 31);
+        carry = __shfl_sync(kFull, x, 31);
       }
     }
-    if (ONE && carry_key >= 0 && lane == 0) atomicAdd(slab + carry_key, carry);
+    if (carry_key >= 0 && lane == 0) atomicAdd(slab + carry_key, carry);
+  }
+}
+
+// ---- d > 1: one CTA per chunk of kChunkSlots slots --------------------- //
+template <bool W>
+__global__ void __launch_bounds__(kThreads)
+tocab_spmm_rows(const float* __restrict__ values,
+                const int32_t* __restrict__ widx,
+                const int32_t* __restrict__ cidx,
+                const float* __restrict__ ev,
+                const uint8_t* __restrict__ mask,
+                const int32_t* __restrict__ block_ids,
+                float* __restrict__ out, int64_t num_blocks,
+                int64_t edge_budget, int64_t block_size, int64_t local_budget,
+                int d, int64_t chunks_per_block) {
+  const int64_t j = blockIdx.x / chunks_per_block;
+  const int64_t c = blockIdx.x - j * chunks_per_block;
+  const int64_t b = block_ids[j];
+  if (b < 0 || b >= num_blocks) return;  // the wrapper validates the ids
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t lo = b * block_size;
+  const int64_t row = b * edge_budget;
+  float* slab = out + j * local_budget * d;
+  const int64_t s_end =
+      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
+  const unsigned lanes_le = kFull >> (31 - lane);
+  // base is the same for the whole warp, so every lane takes the loop and
+  // the full-mask shuffles below are well defined
+  for (int64_t base = c * kChunkSlots + warp * 32; base < s_end;
+       base += kThreads) {
+    const int64_t s = base + lane;
+    int key = -1;  // -1: no real slot here
+    if (s < s_end && mask[row + s]) {
+      const int k = cidx[row + s];
+      if (k >= 0 && k < local_budget) key = k;
+    }
+    const bool live = key >= 0;
+    const int64_t src = live ? lo + widx[row + s] : 0;
+    const float w = (W && live) ? ev[row + s] : 1.0f;
+    const int prev = __shfl_up_sync(kFull, key, 1);
+    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
+    const int seg = 31 - __clz(heads & lanes_le);
+    const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    for (int f = 0; f < d; ++f) {
+      float v = live ? values[src * d + f] : 0.0f;
+      if (W) v *= w;
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(kFull, v, off);
+        if (lane - off >= seg) v += t;
+      }
+      if (tail && live) atomicAdd(slab + (int64_t)key * d + f, v);
+    }
   }
 }
 
@@ -215,22 +262,31 @@ int64_t resident_ctas(K k) {
   return (int64_t)sms * (per_sm > 0 ? per_sm : 1);
 }
 
-template <bool W, bool ONE>
-cudaError_t launch_stream(const float* values, const int32_t* widx,
-                          const int32_t* cidx, const float* ev,
-                          const uint8_t* mask, const int32_t* block_ids,
-                          float* out, int64_t num_ids, int64_t num_blocks,
-                          int64_t edge_budget, int64_t block_size,
-                          int64_t local_budget, int d, cudaStream_t st) {
+template <bool W>
+cudaError_t launch(const float* values, const int32_t* widx,
+                   const int32_t* cidx, const float* ev, const uint8_t* mask,
+                   const int32_t* block_ids, float* out, int64_t num_ids,
+                   int64_t num_blocks, int64_t edge_budget,
+                   int64_t block_size, int64_t local_budget, int d,
+                   cudaStream_t st) {
+  if (d > 1) {
+    const int64_t chunks = (edge_budget + kChunkSlots - 1) / kChunkSlots;
+    const int64_t grid = num_ids * chunks;
+    if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
+    tocab_spmm_rows<W><<<(unsigned)grid, kThreads, 0, st>>>(
+        values, widx, cidx, ev, mask, block_ids, out, num_blocks,
+        edge_budget, block_size, local_budget, d, chunks);
+    return cudaGetLastError();
+  }
   const int64_t chunks = (edge_budget + kWarpSlots - 1) / kWarpSlots;
   const int64_t total = num_ids * chunks;
   const int64_t ctas_needed = (total + kWarps - 1) / kWarps;
-  const int64_t resident = resident_ctas(tocab_spmm_stream<W, ONE>);
+  const int64_t resident = resident_ctas(tocab_spmm_stream<W>);
   if (resident == 0) return cudaGetLastError();
   const int64_t grid = ctas_needed < resident ? ctas_needed : resident;
-  tocab_spmm_stream<W, ONE><<<(unsigned)grid, kThreads, 0, st>>>(
+  tocab_spmm_stream<W><<<(unsigned)grid, kThreads, 0, st>>>(
       values, widx, cidx, ev, mask, block_ids, out, num_blocks, edge_budget,
-      block_size, local_budget, d, chunks, total);
+      block_size, local_budget, chunks, total);
   return cudaGetLastError();
 }
 
@@ -251,11 +307,7 @@ extern "C" int tocab_spmm(const float* values, const int32_t* widx,
     return cudaSuccess;
 #define TS_ARGS values, widx, cidx, ev, mask, block_ids, out, num_ids, \
     num_blocks, edge_budget, block_size, local_budget, d, st
-  if (d == 1)
-    return ev != nullptr ? launch_stream<true, true>(TS_ARGS)
-                         : launch_stream<false, true>(TS_ARGS);
-  return ev != nullptr ? launch_stream<true, false>(TS_ARGS)
-                       : launch_stream<false, false>(TS_ARGS);
+  return ev != nullptr ? launch<true>(TS_ARGS) : launch<false>(TS_ARGS);
 #undef TS_ARGS
 }
 
