@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Floors and design variants of the port's scatter and segment kernels,
-``fused_push`` (``src/repro_torch/kernels/tocab_fused/csrc/fused_push.cu``)
-and ``tocab_spmm`` (``src/repro_torch/kernels/tocab_spmm/csrc/
+"""Floors and design variants of the port's graph kernels, ``fused_pull``
+and ``fused_push`` (``src/repro_torch/kernels/tocab_fused/csrc/``) and
+``tocab_spmm`` (``src/repro_torch/kernels/tocab_spmm/csrc/
 tocab_spmm.cu``), built and timed side by side on one card at the main
 path's shapes: the Graph500 scale-24 graph of ``chip_smoke.py``
-(``rmat_graph(24, 16, seed=1, weights=True)``), its push layout and its
-pull layout's dense bin, PageRank-like fp32 values, unweighted.
+(``rmat_graph(24, 16, seed=1, weights=True)``), its pull and push layouts
+and the pull layout's dense bin, PageRank-like fp32 values, unweighted.
 
     python3 benchmarks/torch_graph_kernel_variants.py [--scale 24]
         [--out graph_kernel_variants.jsonl]   # on the card
@@ -19,10 +19,12 @@ kernel, so no index stream is read):
 * ``gather`` — as many random 4-byte reads, from the same sizes, plain
   (``ld.global.nc``) and with the hint and no L1 allocation;
 * ``streams`` — the push layout's ``widx``, ``cidx`` and ``mask`` slabs
-  read once (16-byte loads), and the dense block's alone;
+  read once (16-byte loads), the pull layout's, and the dense block's
+  alone;
 * ``slots`` — those slabs read mask first, and per real slot one RED into
-  (push) or one gather from (the dense block) the window at its ``widx``:
-  the kernel's memory traffic without its source reads and scans.
+  (push) or one gather from (pull, the dense block) the window at its
+  ``widx``: the kernel's memory traffic without its id_map reads and
+  scans.
 
 ``push_destinations`` says how far combining equal destinations could cut
 push's reductions: the share of distinct destinations among the real
@@ -34,10 +36,20 @@ flags and called through the package's own launcher:
 
 * ``previous`` — the earlier designs (``PREVIOUS_SRC``, a copy of their
   global-window kernels, sum semiring): push one CTA per 4096-slot chunk,
-  one slot a thread, every message an atomic; SpMM one CTA per 4096-slot
-  chunk, one slot and one gather in flight a lane, an atomic per run per
-  32-slot step;
+  one slot a thread, every message an atomic; pull and SpMM one CTA per
+  4096-slot chunk, one slot and one gather in flight a lane, an atomic per
+  run per 32-slot step;
 * ``as_is`` — the source;
+* pull: ``steps1`` / ``steps2`` / ``steps8`` (batched 32-slot steps a
+  warp, 4 as is), ``window_no_l1`` (window gathers without L1
+  allocation), ``window_normal`` (the window's L2 policy evict-normal),
+  ``streams_normal`` (the slot streams' L2 policy evict-normal),
+  ``streams_l1`` (slot streams through L1, no L2 policy), ``no_carry``
+  (each step's last run added at the step, not carried), ``persistent``
+  (as many CTAs as are resident, each warp walking the chunks with a
+  static stride; one chunk a warp as is), ``chunk2048`` (warp chunks, 512
+  as is), ``stream_all_d`` (d > 1 on the streaming kernel too: timed at
+  d = 8 only, in turns with ``as_is``);
 * push: ``table8192`` / ``table16384`` (table entries, 28672 as is),
   ``threads256_table4096`` (combining CTAs of 256 threads, four an SM,
   each with a 4096-entry table; one CTA of 1024 threads as is),
@@ -49,12 +61,12 @@ flags and called through the package's own launcher:
   ``streams_l1`` (slot streams through L1, no L2 policy),
   ``window_normal`` (the window's L2 policy evict-normal),
   ``window_no_l1`` (window gathers without L1 allocation);
-* both sources as they are at d = 8 (``(n, 8)`` values), where each takes
-  its d > 1 kernel.
+* the three sources as they are at d = 8 (``(n, 8)`` values), where each
+  takes its d > 1 kernel.
 
 Every variant is held against the plain version at the main shapes
-(``chip_smoke.py``'s ``SUM_RTOL`` and atol); ``fused_pull`` and a
-``torch.sparse`` CSR product of the same matrices are timed beside them.
+(``chip_smoke.py``'s ``SUM_RTOL`` and atol); a ``torch.sparse`` CSR
+product of the same matrices is timed beside them.
 One JSON line per measurement, after the card's name and power limit; the
 same lines go to ``--out``.  Fails if there is no card, or if a source no
 longer has the text an edit targets.
@@ -230,9 +242,9 @@ extern "C" int probe_streams(const void* widx, const void* cidx,
 }
 """
 
-#: The earlier global-window designs of fused_push (d = 1 and d > 1 alike)
-#: and tocab_spmm, sum semiring, weighted or not: the yardsticks that
-#: ``previous_ms`` times (:class:`Previous`).
+#: The earlier designs of fused_pull, fused_push's global window (d = 1 and
+#: d > 1 alike) and tocab_spmm, sum semiring, weighted or not: the
+#: yardsticks that ``previous_ms`` times (:class:`Previous`).
 PREVIOUS_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -268,6 +280,54 @@ push_global(const float* __restrict__ values, const int32_t* __restrict__ widx,
     for (int f = 0; f < d; ++f)
       atomicAdd(win + w_row * d + f, W ? values[src * d + f] * w
                                        : values[src * d + f]);
+  }
+}
+
+// pull: one CTA per chunk, one slot and one gather a lane, the runs of
+// equal cidx reduced by a segmented shuffle scan, an atomic per run a step
+// into out through id_map
+template <bool W>
+__global__ void __launch_bounds__(kThreads)
+pull_kernel(const float* __restrict__ values, const int32_t* __restrict__ widx,
+            const int32_t* __restrict__ cidx, const float* __restrict__ ev,
+            const uint8_t* __restrict__ mask,
+            const int32_t* __restrict__ id_map, float* __restrict__ out,
+            int64_t n, int64_t edge_budget, int64_t local_budget,
+            int64_t block_size, int d, int64_t chunks_per_block) {
+  const int64_t b = blockIdx.x / chunks_per_block;
+  const int64_t c = blockIdx.x - b * chunks_per_block;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t lo = b * block_size;
+  const int64_t row = b * edge_budget;
+  const int64_t s_end =
+      (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
+  const unsigned lanes_le = kFull >> (31 - lane);
+  for (int64_t base = c * kChunkSlots + warp * 32; base < s_end;
+       base += kThreads) {
+    const int64_t s = base + lane;
+    const bool live = s < s_end && mask[row + s];
+    const int key = live ? cidx[row + s] : -1;
+    const int64_t src = live ? lo + widx[row + s] : 0;
+    const float w = (W && live) ? ev[row + s] : 1.0f;
+    const int prev = __shfl_up_sync(kFull, key, 1);
+    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
+    const int seg = 31 - __clz(heads & lanes_le);
+    const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    int64_t gid = -1;
+    if (tail && key >= 0) {
+      gid = id_map[b * local_budget + key];
+      if (gid >= n) gid = -1;
+    }
+    for (int f = 0; f < d; ++f) {
+      float v = live ? values[src * d + f] : 0.0f;
+      if (W) v *= w;
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(kFull, v, off);
+        if (lane - off >= seg) v += t;
+      }
+      if (gid >= 0) atomicAdd(out + gid * d + f, v);
+    }
   }
 }
 
@@ -346,6 +406,36 @@ extern "C" int previous_fused_push(
           local_budget, block_size, d, chunks);
     else
       push_global<false><<<(unsigned)grid, kThreads, 0, st>>>(
+          values, widx, cidx, ev, mask, id_map, out, n, edge_budget,
+          local_budget, block_size, d, chunks);
+  }
+  const int64_t count = n * d;
+  if (fuse_epilogue && count > 0) {
+    int64_t blocks = (count + kThreads - 1) / kThreads;
+    if (blocks > 65536) blocks = 65536;
+    epilogue_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(out, count, eps);
+  }
+  return cudaGetLastError();
+}
+
+// out: the identity (0) filled by the caller; eps read when fuse_epilogue
+extern "C" int previous_fused_pull(
+    const float* values, const int32_t* widx, const int32_t* cidx,
+    const float* ev, const uint8_t* mask, const int32_t* id_map,
+    const float* eps, float* out, int64_t n, int64_t num_blocks,
+    int64_t edge_budget, int64_t local_budget, int64_t block_size, int d,
+    int fuse_epilogue, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t chunks = (edge_budget + kChunkSlots - 1) / kChunkSlots;
+  const int64_t grid = num_blocks * chunks;
+  if (grid > 0x7fffffff || d < 1) return cudaErrorInvalidConfiguration;
+  if (grid > 0) {
+    if (ev != nullptr)
+      pull_kernel<true><<<(unsigned)grid, kThreads, 0, st>>>(
+          values, widx, cidx, ev, mask, id_map, out, n, edge_budget,
+          local_budget, block_size, d, chunks);
+    else
+      pull_kernel<false><<<(unsigned)grid, kThreads, 0, st>>>(
           values, widx, cidx, ev, mask, id_map, out, n, edge_budget,
           local_budget, block_size, d, chunks);
   }
@@ -443,11 +533,52 @@ _COUNT_EDITS = (
 )
 
 
+# fused_pull's streaming kernel without the run carry: every step's last
+# run is emitted at the step
+_NO_CARRY = (
+    ("const bool tail = lane < 31 && ((heads >> (lane + 1)) & 1u);",
+     "const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);"),
+    ("carry_key = __shfl_sync(kFull, k, 31);", "carry_key = -1;"),
+)
+# fused_pull's d > 1 route taken by the streaming kernel too
+_PULL_ROUTE = ("  if (a.d > 1) return launch_rows<R, M>(a, st);\n", "")
+# fused_pull's streaming kernel on a persistent grid: as many CTAs as are
+# resident, each warp walking the chunks with a static stride
+_PULL_PERSISTENT = (
+    "  const int64_t grid = (total + kWarps - 1) / kWarps;  // a chunk a warp\n",
+    "  int dev = 0, sms = 0, per_sm = 0;\n"
+    "  cudaGetDevice(&dev);\n"
+    "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+    "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+    "      &per_sm, fused_pull_stream<R, M>, kThreads, 0);\n"
+    "  const int64_t needed = (total + kWarps - 1) / kWarps;\n"
+    "  const int64_t resident = (int64_t)sms * per_sm;\n"
+    "  const int64_t grid = needed < resident ? needed : resident;\n")
+_PULL_CHUNK = "constexpr int64_t kWarpSlots = 512; "
+
+
 def variants(src: str, kernel: str) -> dict:
     """The source and its one-edit variants (the module docstring lists
     them)."""
     out = {"as_is": src}
-    if kernel == "fused_push":
+    if kernel == "fused_pull":
+        out.update({
+            "steps1": _steps(src, 1),
+            "steps2": _steps(src, 2),
+            "steps8": _steps(src, 8),
+            "window_no_l1": _edit(src, ((
+                "ld.global.nc.L2::cache_hint.f32 %0",
+                "ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0"),)),
+            "window_normal": _edit(src, _POLICIES[1:]),
+            "streams_normal": _edit(src, _POLICIES[:1]),
+            "streams_l1": _edit(src, (_STREAM_LD,)),
+            "no_carry": _edit(src, _NO_CARRY),
+            "persistent": _edit(src, (_PULL_PERSISTENT,)),
+            "chunk2048": _edit(src, ((_PULL_CHUNK, "constexpr int64_t "
+                                      "kWarpSlots = 2048;"),)),
+            "stream_all_d": _edit(src, (_PULL_ROUTE,)),
+        })
+    elif kernel == "fused_push":
         table = "constexpr int kTable = 28672;"
         thr = "constexpr int kCombineThreads = 1024;"
         out.update({
@@ -644,10 +775,10 @@ class Previous:
     def __init__(self, path: Path):
         P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib = ctypes.CDLL(str(path))
-        lib.previous_fused_push.argtypes = [P] * 8 + [I64] * 5 + [I32] * 2 \
-            + [P]
+        for fn in (lib.previous_fused_pull, lib.previous_fused_push):
+            fn.argtypes = [P] * 8 + [I64] * 5 + [I32] * 2 + [P]
+            fn.restype = I32
         lib.previous_tocab_spmm.argtypes = [P] * 7 + [I64] * 5 + [I32, P]
-        lib.previous_fused_push.restype = I32
         lib.previous_tocab_spmm.restype = I32
         self.lib = lib
 
@@ -656,9 +787,17 @@ class Previous:
         if rc:
             raise RuntimeError(f"{what}: CUDA error {rc}")
 
+    def fused_pull(self, values, bg, edge_vals=None, epilogue=None):
+        """``fused_pull_cuda(values, <bg's slabs>, edge_vals, ...,
+        reduce="sum", epilogue=epilogue)`` on the earlier design."""
+        return self._fused("fused_pull", values, bg, edge_vals, epilogue)
+
     def fused_push(self, values, bg, edge_vals=None, epilogue=None):
         """``fused_push_cuda(values, <bg's slabs>, edge_vals, ...,
         reduce="sum", epilogue=epilogue)`` on the earlier design."""
+        return self._fused("fused_push", values, bg, edge_vals, epilogue)
+
+    def _fused(self, name, values, bg, edge_vals, epilogue):
         import torch
 
         n, d = values.shape
@@ -667,7 +806,7 @@ class Previous:
             torch.as_tensor(v, dtype=torch.float32,
                             device=values.device).reshape(())
             for v in epilogue])
-        self._check(self.lib.previous_fused_push(
+        self._check(getattr(self.lib, f"previous_{name}")(
             values.data_ptr(), bg.window_idx.data_ptr(),
             bg.compact_idx.data_ptr(),
             None if edge_vals is None else edge_vals.data_ptr(),
@@ -675,7 +814,7 @@ class Previous:
             None if eps is None else eps.data_ptr(), out.data_ptr(), n,
             bg.num_blocks, bg.edge_budget, bg.local_budget, bg.block_size, d,
             int(eps is not None), torch.cuda.current_stream().cuda_stream),
-            "previous fused_push")
+            f"previous {name}")
         return out
 
     def tocab_spmm(self, values, window_idx, compact_idx, edge_mask,
@@ -729,7 +868,8 @@ def main(argv=None) -> int:
     from repro_torch.core.balance import BIN_DENSE, _compact_budget
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.tocab_fused import kernel as fk
-    from repro_torch.kernels.tocab_fused.ref import fused_push_ref
+    from repro_torch.kernels.tocab_fused.ref import (fused_pull_ref,
+                                                     fused_push_ref)
     from repro_torch.kernels.tocab_spmm import kernel as sk
     from repro_torch.kernels.tocab_spmm.ref import tocab_spmm_ref
 
@@ -743,8 +883,8 @@ def main(argv=None) -> int:
     # ---- builds: the package's sources, the probes, the variants ---- #
     t0 = time.perf_counter()
     cuda_build.build(["fused_pull", "fused_push", "tocab_spmm"])
-    srcs = {"fused_push": cuda_build._source("fused_push").read_text(),
-            "tocab_spmm": cuda_build._source("tocab_spmm").read_text()}
+    srcs = {name: cuda_build._source(name).read_text()
+            for name in ("fused_pull", "fused_push", "tocab_spmm")}
     jobs = {"probe": PROBE_SRC, "previous": PREVIOUS_SRC}
     for kernel, text in srcs.items():
         for name, body in variants(text, kernel).items():
@@ -755,14 +895,8 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "registers": {nm: registers(text) for nm, text in logs.items()
                         if nm != "probe"}}, out)
-    I64, I32 = ctypes.c_int64, ctypes.c_int
     floors = Floors(libs["probe"])
     previous = Previous(libs["previous"])
-    push_sigs = {
-        "tocab_fused_push": ([ctypes.c_void_p] * 8 + [I64] * 5 + [I32] * 3
-                             + [ctypes.c_void_p], I32),
-        "tocab_fused_push_error": ([I32], ctypes.c_char_p),
-        "tocab_fused_push_window_shared": ([I64, I32], I32)}
 
     # ---- the scale-24 graph and its layouts ---- #
     t0 = time.perf_counter()
@@ -790,8 +924,9 @@ def main(argv=None) -> int:
                   "red_ms": red, "red_g_per_s": m / red / 1e6,
                   "gather_ms": gat, "gather_g_per_s": m / gat / 1e6}, out)
     dense = pull.schedule.blocks_in(BIN_DENSE)
-    for what, bg, rows in (("push_layout", push, None),
-                           ("dense_block", pull, dense)):
+    for what, bg, rows, red in (("push_layout", push, None, True),
+                                ("pull_layout", pull, None, False),
+                                ("dense_block", pull, dense, False)):
         w, c, k = bg.window_idx, bg.compact_idx, bg.edge_mask
         if rows is not None:
             sel = torch.tensor(rows, device="cuda")
@@ -801,12 +936,12 @@ def main(argv=None) -> int:
         window = torch.rand(bg.num_blocks * B, device="cuda")
         blocks = range(bg.num_blocks) if rows is None else rows
         both = floors.slots(w, c, k, [window[b * B:] for b in blocks],
-                            red=rows is None)
+                            red=red)
         emit({"phase": "floor", "streams": what, "slots": w.numel(),
               "bytes": nbytes, "streams_ms": ms,
               "tb_per_s": nbytes / ms / 1e9,
-              "streams_and_" + ("red" if rows is None else "gather") + "_ms":
-              both}, out)
+              "streams_and_" + ("red" if red else "gather") + "_ms": both},
+             out)
         del window
 
     # how far combining equal destinations could cut push's reductions:
@@ -826,7 +961,7 @@ def main(argv=None) -> int:
     emit({"phase": "push_destinations", **stats}, out)
     del k0, dst0, slot, deg, key
 
-    # ---- yardsticks: fused_pull, the CSR products ---- #
+    # ---- yardsticks: the CSR products ---- #
     x = torch.rand(n, generator=torch.Generator().manual_seed(cs.SEED)).cuda()
     x2 = x[:, None]
     order = torch.sort(dg.dst, stable=True).indices
@@ -841,42 +976,47 @@ def main(argv=None) -> int:
     emit({"phase": "yardstick", "name": "csr_matvec_whole",
           "ms": cs.cuda_ms(lambda: a_t @ x, reps=5)}, out)
     del a_t
-    emit({"phase": "yardstick", "name": "fused_pull",
-          "ms": cs.cuda_ms(lambda: fk.fused_pull_cuda(
-              x2, pull.window_idx, pull.compact_idx, None, pull.edge_mask,
-              pull.id_map, block_size=B, reduce="sum"), reps=10, warmup=2)},
-         out)
 
-    # ---- fused_push variants ---- #
-    def push_call(launch):
-        return lambda: launch(x2, push.window_idx, push.compact_idx, None,
-                              push.edge_mask, push.id_map, block_size=B,
+    # ---- fused_pull and fused_push variants ---- #
+    def fused_call(launch, bg, x):
+        return lambda: launch(x, bg.window_idx, bg.compact_idx, None,
+                              bg.edge_mask, bg.id_map, block_size=B,
                               reduce="sum")
 
-    ref = fused_push_ref(push, x2, "sum", UNWEIGHTED)
-    runs = [("previous", None, lambda *a, **kw: previous.fused_push(x2, push))]
-    runs += [(name, libs[f"fused_push__{name}"], fk.fused_push_cuda)
-             for name in variants(srcs["fused_push"], "fused_push")]
-    for name, path, launch in runs:
-        lib = load_as("fused_push", path, push_sigs) if path else None
-        fn = push_call(launch)
-        ms = cs.cuda_ms(fn, reps=10, warmup=2)
-        err, atol, used = cs.check_close(f"fused_push {name}", fn(), ref,
-                                         "sum")
-        emit({"phase": "variant", "kernel": "fused_push", "variant": name,
-              "ms": ms, "max_abs_err": err, "tolerance_used": used}, out)
-        if name == "counted":
-            counts = (ctypes.c_uint64 * 3)()
-            torch.cuda.synchronize()
-            lib.counts_reset()
-            fn()
-            torch.cuda.synchronize()
-            lib.counts_read(counts)
-            emit({"phase": "push_counts", "reduced_in_table": counts[0],
-                  "sent_to_l2": counts[1], "flushed": counts[2],
-                  "reds_per_edge": (counts[1] + counts[2]) / m}, out)
-    del ref
-    cuda_build._LIBS.pop("fused_push", None)
+    launchers = {"fused_pull": fk.fused_pull_cuda,
+                 "fused_push": fk.fused_push_cuda}
+    plains = {"fused_pull": fused_pull_ref, "fused_push": fused_push_ref}
+    layouts = {"fused_pull": pull, "fused_push": push}
+    for kernel in ("fused_pull", "fused_push"):
+        bg = layouts[kernel]
+        ref = plains[kernel](bg, x2, "sum", UNWEIGHTED)
+        runs = [("previous", None,
+                 lambda *a, bg=bg, k=kernel, **kw: getattr(previous, k)(x2,
+                                                                        bg))]
+        runs += [(name, libs[f"{kernel}__{name}"], launchers[kernel])
+                 for name in variants(srcs[kernel], kernel)
+                 if name != "stream_all_d"]  # the same kernel at d = 1
+        for name, path, launch in runs:
+            lib = (load_as(kernel, path, fk.signatures(kernel)) if path
+                   else None)
+            fn = fused_call(launch, bg, x2)
+            ms = cs.cuda_ms(fn, reps=10, warmup=2)
+            err, atol, used = cs.check_close(f"{kernel} {name}", fn(), ref,
+                                             "sum")
+            emit({"phase": "variant", "kernel": kernel, "variant": name,
+                  "ms": ms, "max_abs_err": err, "tolerance_used": used}, out)
+            if name == "counted":
+                counts = (ctypes.c_uint64 * 3)()
+                torch.cuda.synchronize()
+                lib.counts_reset()
+                fn()
+                torch.cuda.synchronize()
+                lib.counts_read(counts)
+                emit({"phase": "push_counts", "reduced_in_table": counts[0],
+                      "sent_to_l2": counts[1], "flushed": counts[2],
+                      "reds_per_edge": (counts[1] + counts[2]) / m}, out)
+        del ref
+        cuda_build._LIBS.pop(kernel, None)
 
     # ---- tocab_spmm variants, the dense bin ---- #
     budget = _compact_budget(pull.schedule, BIN_DENSE, pull.local_budget)
@@ -920,24 +1060,38 @@ def main(argv=None) -> int:
     cuda_build._LIBS.pop("tocab_spmm", None)
     del ref
 
-    # d = 8, the other side of both kernels' d = 1 / d > 1 choice: the
-    # package's sources as they are
+    # d = 8, the other side of the kernels' d = 1 / d > 1 choice: the
+    # package's sources as they are, and fused_pull's d > 1 route on its
+    # streaming kernel (stream_all_d) in turns with it
     x8 = torch.rand((n, 8), generator=torch.Generator().manual_seed(
         cs.SEED)).cuda()
-    for kernel, fn, plain in (
-            ("fused_push", lambda: fk.fused_push_cuda(
-                x8, push.window_idx, push.compact_idx, None, push.edge_mask,
-                push.id_map, block_size=B, reduce="sum"),
-             lambda: fused_push_ref(push, x8, "sum", UNWEIGHTED)),
-            ("tocab_spmm", lambda: sk.tocab_spmm_cuda(x8, *sargs[1:], **skw),
-             lambda: tocab_spmm_ref(x8, *sargs[1:], **skw))):
+    pull8 = fused_pull_ref(pull, x8, "sum", UNWEIGHTED)
+    runs = [("fused_pull", "as_is", fused_call(fk.fused_pull_cuda, pull, x8),
+             pull8),
+            ("fused_pull", "stream_all_d",
+             fused_call(fk.fused_pull_cuda, pull, x8), pull8),
+            ("fused_pull", "as_is", fused_call(fk.fused_pull_cuda, pull, x8),
+             pull8),
+            ("fused_pull", "stream_all_d",
+             fused_call(fk.fused_pull_cuda, pull, x8), pull8),
+            ("fused_push", "as_is", fused_call(fk.fused_push_cuda, push, x8),
+             fused_push_ref(push, x8, "sum", UNWEIGHTED)),
+            ("tocab_spmm", "as_is",
+             lambda: sk.tocab_spmm_cuda(x8, *sargs[1:], **skw),
+             tocab_spmm_ref(x8, *sargs[1:], **skw))]
+    del pull8
+    for kernel, name, fn, ref in runs:
+        if kernel == "fused_pull":
+            load_as(kernel, libs[f"fused_pull__{name}"],
+                    fk.signatures(kernel))
         ms = cs.cuda_ms(fn, reps=5, warmup=1)
-        err, atol, used = cs.check_close(f"{kernel} d=8", fn(), plain(),
+        err, atol, used = cs.check_close(f"{kernel} {name} d=8", fn(), ref,
                                          "sum")
         emit({"phase": "variant", "kernel": kernel, "d": 8,
-              "variant": "as_is", "ms": ms, "max_abs_err": err,
+              "variant": name, "ms": ms, "max_abs_err": err,
               "tolerance_used": used}, out)
-    del x8
+    cuda_build._LIBS.pop("fused_pull", None)
+    del x8, runs, ref
 
     emit({"phase": "done", "launches": dict(cuda_build.launches)}, out)
     return 0

@@ -11,16 +11,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    sources at once, seconds).
 2. Kernel vs plain, on ``rmat_graph(18, 16)``: the ``fused_pull`` /
    ``fused_push`` kernels against their plain PyTorch versions for every
-   semiring, ``(n,)`` and ``(n, 8)`` values, weighted and unweighted, with
-   and without the epilogue, on two block sizes (the shared-memory and the
-   global-memory push paths); the ``tocab_spmm`` kernel against its plain
+   semiring, ``(n,)`` and ``(n, 8)`` values, every message mode (weighted
+   ``combine=None``, ``UNWEIGHTED``, ``ADD_EDGE`` on the weighted layout
+   and on the same layout without edge values), with and without the
+   epilogue, on two block sizes (the shared-memory and the global-memory
+   push paths), one launch a call; the ``tocab_spmm`` kernel against its plain
    version on both block sizes, every block dense (thresholds ``(0, 0)``)
    and the ``"auto"`` dense bin (a ``block_ids`` subset at the bin's
    budget), ``(n,)`` and ``(n, 8)``, weighted and unweighted, and with a
    NaN that only padding slots read.  Both families also on an edge-case
    graph (three blocks of 65536 rows, the middle one with no edge, a hub
    whose runs are longer than a warp chunk, slabs padded to no multiple of
-   a chunk or a step): every semiring for the push kernel, and
+   a chunk or a step): both fused kernels as on the R-MAT graph, and
    ``tocab_spmm`` over every block, the empty one included.
 3. The attention kernels against their plain versions:
    ``flash_attention`` over GQA groups 1, 4 and 8, causal and
@@ -52,7 +54,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    balanced ``gc-pull`` iteration and once for the SpMV).
 5. Each graph kernel timed at the main path's shapes beside its plain
    version, its bound and a ``torch.sparse`` CSR product of the same matrix;
-   ``fused_push`` and ``tocab_spmm`` also beside their earlier designs
+   and beside its earlier design
    (``previous_ms``, built from ``benchmarks/torch_graph_kernel_variants.py``'s
    copy of them), and each graph kernel beside the floors of
    ``benchmarks/torch_graph_kernel_variants.py`` at its own sizes: random
@@ -93,6 +95,7 @@ detail (each case's error, the compiler's register report) to PATH.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -315,7 +318,9 @@ def phase_kernels(seed: int, log) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core import UNWEIGHTED, build_blocked, rmat_graph
+    from repro_torch.core import (ADD_EDGE, UNWEIGHTED, build_blocked,
+                                  rmat_graph)
+    from repro_torch.kernels import cuda_build
     from repro_torch.kernels.tocab_fused import fused_pull, fused_push
     from repro_torch.kernels.tocab_fused.ref import (fused_pull_ref,
                                                      fused_push_ref)
@@ -336,6 +341,11 @@ def phase_kernels(seed: int, log) -> dict:
         for direction in ("pull", "push"):
             bg = build_blocked(graph, block_size=block_size,
                                direction=direction, pad_edges_to=pad)
+            # the kernels' four message modes: v*ev, v, v + ev, v + 1
+            modes = (("mul", bg, None), ("none", bg, UNWEIGHTED),
+                     ("add_ev", bg, ADD_EDGE),
+                     ("add_one", dataclasses.replace(bg, edge_vals=None),
+                      ADD_EDGE))
             fused, plain = ((fused_pull, fused_pull_ref)
                             if direction == "pull"
                             else (fused_push, fused_push_ref))
@@ -346,21 +356,29 @@ def phase_kernels(seed: int, log) -> dict:
                     rng.random(shape, dtype=np.float32)).to(dev)
                 signed = torch.from_numpy(
                     rng.standard_normal(shape).astype(np.float32)).to(dev)
+                # min: some sources unreached (+inf), as SSSP's distances;
+                # inf plus a weight stays inf under the float-bit atomics
+                unreached = signed.clone()
+                unreached.view(-1)[::97] = float("inf")
                 for reduce in ("sum", "min", "max"):
-                    x = pos if reduce == "sum" else signed
+                    x = {"sum": pos, "min": unreached, "max": signed}[reduce]
                     eps_opts = [None]
                     if reduce == "sum":
                         eps_opts.append(
                             (0.85, torch.tensor(0.01, device=dev)))
-                    for weighted in (True, False):
-                        combine = None if weighted else UNWEIGHTED
+                    for mode, layout, combine in modes:
                         for eps in eps_opts:
-                            out = fused(bg, x, reduce, combine, eps)
-                            ref = plain(bg, x, reduce, combine, eps)
+                            before = cuda_build.launches[name]
+                            out = fused(layout, x, reduce, combine, eps)
+                            launched = cuda_build.launches[name] - before
+                            ref = plain(layout, x, reduce, combine, eps)
                             torch.cuda.synchronize()
                             what = (f"{name} B={block_size} pad={pad} "
                                     f"n={graph.n} d={d} {reduce} "
-                                    f"weighted={weighted} eps={eps is not None}")
+                                    f"message={mode} eps={eps is not None}")
+                            if launched != 1:
+                                raise AssertionError(
+                                    f"{what}: {launched} launches, not 1")
                             err, atol, used = check_close(what, out, ref,
                                                           reduce)
                             worst[name] = max(worst[name], err)
@@ -368,10 +386,12 @@ def phase_kernels(seed: int, log) -> dict:
                             cases += 1
                             log(f"ok {what} max_abs_err={err:.3g} "
                                 f"atol={atol:.3g} tolerance_used={used:.3g}")
-            del bg
+            del bg, modes
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "graph": "rmat_graph(18, 16)",
-          "n": g.n, "m": g.m, "cases": cases, "max_abs_err": worst,
+          "n": g.n, "m": g.m, "cases": cases,
+          "messages": ["mul", "none", "add_ev", "add_one"],
+          "max_abs_err": worst,
           "sum_rtol": SUM_RTOL,
           "sum_atol": f"{SUM_ATOL_ULPS_OF_MEAN!r} * mean|ref|",
           "sum_tolerance_used": tol_used,
@@ -687,17 +707,17 @@ def phase_timing(main: dict, log, floors, previous) -> list:
                           reduce="sum", epilogue=eps)
 
         ms = cuda_ms(run, reps=10, warmup=2)
-        extra = {}
-        if name == "fused_push":  # beside its earlier design
-            def run_previous():
-                return previous.fused_push(x2, bg, epilogue=eps)
-            extra["previous_ms"] = cuda_ms(run_previous, reps=10, warmup=2)
-            extra["previous_source"] = PREVIOUS_SOURCE
-            err_prev, _, _ = check_close(f"{name} previous at main shapes",
-                                         run_previous(), plain(
-                                             bg, x2, "sum", UNWEIGHTED, eps),
-                                         "sum")
-            extra["previous_max_abs_err"] = err_prev
+
+        def run_previous():  # the earlier design
+            return getattr(previous, name)(x2, bg, epilogue=eps)
+
+        extra = {"previous_ms": cuda_ms(run_previous, reps=10, warmup=2),
+                 "previous_source": PREVIOUS_SOURCE}
+        err_prev, _, _ = check_close(f"{name} previous at main shapes",
+                                     run_previous(), plain(
+                                         bg, x2, "sum", UNWEIGHTED, eps),
+                                     "sum")
+        extra["previous_max_abs_err"] = err_prev
         extra["floors"] = graph_floors(
             floors, bg.block_size,
             (bg.window_idx, bg.compact_idx, bg.edge_mask), m, kind)

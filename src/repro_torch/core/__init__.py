@@ -31,6 +31,7 @@ from .partition import (  # noqa: F401
     choose_block_size,
 )
 from .balance import (  # noqa: F401
+    ADD_EDGE,
     BIN_NAMES,
     UNWEIGHTED,
     BlockSchedule,

@@ -50,6 +50,7 @@ __all__ = [
     "DEFAULT_THRESHOLDS",
     "BlockSchedule",
     "UNWEIGHTED",
+    "ADD_EDGE",
     "make_schedule",
     "require_schedule",
     "fused_block_order",
@@ -75,6 +76,16 @@ def UNWEIGHTED(msgs, edge_vals):
     no edge-value stream at all, and the dense bin stays on its kernel
     (a generic callable forces the scan strategy)."""
     return msgs
+
+
+def ADD_EDGE(msgs, edge_vals):
+    """Sentinel ``combine`` that adds the edge value to each message, or 1
+    where the layout has none: traversal's relaxation ``d + w`` under
+    ``min`` (SSSP), hop counts on an unweighted graph.  An ordinary
+    callable for the torch engines; the CUDA fused kernels recognize it by
+    identity and form the message in the kernel.  The dense bin treats it
+    as any other callable."""
+    return msgs + (edge_vals if edge_vals is not None else 1.0)
 
 
 @dataclasses.dataclass(frozen=True)

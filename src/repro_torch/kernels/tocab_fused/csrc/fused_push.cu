@@ -3,12 +3,14 @@
 // Replaces: src/repro/kernels/tocab_fused/kernel.py, fused_push_pallas /
 // _fused_push_kernel — the TPU kernel behind tocab_push(impl="fused").
 //
-// Computes out[b*B + widx[b,s]] (+|min|max)= values[id_map[b, cidx[b,s]]]
-// (* ev[b,s]) over every real edge slot s of every TOCAB block b (row
-// blocking: block b owns the disjoint destination window [b*B, b*B+B)),
-// then, if asked, out = out*mul + add.  A slot whose mask is clear, whose
-// cidx lies outside [0, local_budget) or whose id_map entry is padding
-// (>= n) adds nothing.
+// Computes out[b*B + widx[b,s]] (+|min|max)= msg(values[id_map[b,
+// cidx[b,s]]], ev[b,s]) over every real edge slot s of every TOCAB block b
+// (row blocking: block b owns the disjoint destination window [b*B,
+// b*B+B)), then, if asked, out = out*mul + add.  The message mode is the
+// engine's combine: v*ev (mul), v (none), v + ev (add-ev) or v + 1
+// (add-one, an additive combine on a layout without edge values).  A slot
+// whose mask is clear, whose cidx lies outside [0, local_budget) or whose
+// id_map entry is padding (>= n) adds nothing.
 //
 // Design.  The Pallas kernel gathers the block's distinct sources once into
 // VMEM (block_contrib) and scatters into a VMEM copy of the block's window.
@@ -77,6 +79,21 @@ constexpr int kCombineWarps = kCombineThreads / 32;
 constexpr int64_t kCtaSlots = 1 << 16;  // slots of one CTA chunk
 
 enum Reduce { kSum = 0, kMin = 1, kMax = 2 };
+// message modes (the C interface's `mode`)
+enum Mode { kMul = 0, kNone = 1, kAddEv = 2, kAddOne = 3 };
+
+__host__ __device__ constexpr bool reads_ev(int m) {
+  return m == kMul || m == kAddEv;
+}
+
+// one rounding each, as torch's v * ev and v + ev (no FMA contraction)
+template <int M>
+__device__ __forceinline__ float message(float v, float e) {
+  return M == kMul ? __fmul_rn(v, e)
+                   : (M == kNone ? v
+                                 : (M == kAddEv ? __fadd_rn(v, e)
+                                                : __fadd_rn(v, 1.0f)));
+}
 
 template <int R>
 __device__ __forceinline__ float identity() {
@@ -164,7 +181,7 @@ __device__ __forceinline__ void red_global(float* p, float v, uint64_t pol) {
 // slot reads its mask only — and then the source rows through id_map.
 // src = n where a slot carries no message (mask clear, cidx out of range,
 // or a padded id_map entry).
-template <bool W>
+template <int M>
 __device__ __forceinline__ void load_steps(
     const int32_t* __restrict__ widx, const int32_t* __restrict__ cidx,
     const float* __restrict__ ev, const uint8_t* __restrict__ mask,
@@ -177,11 +194,11 @@ __device__ __forceinline__ void load_steps(
     const int64_t s = slot + u * 32;
     key[u] = -1;
     w[u] = 0;
-    e[u] = 1.0f;
+    e[u] = 0.0f;
     if (s < s_end && ld_stream(mask + row + s, pol_stream)) {
       const int k = ld_stream(cidx + row + s, pol_stream);
       w[u] = ld_stream(widx + row + s, pol_stream);
-      if (W) e[u] = ld_stream(ev + row + s, pol_stream);
+      if (reads_ev(M)) e[u] = ld_stream(ev + row + s, pol_stream);
       if (k >= 0 && k < local_budget) key[u] = k;
     }
   }
@@ -195,7 +212,7 @@ __device__ __forceinline__ void load_steps(
 // its warps take the chunk's 32*kSteps-slot iterations in turn.  The table
 // lives over all the CTA's chunks of one block (small chunks keep the CTAs
 // evenly loaded; the table still sees 1/grid of the block's edges).
-template <int R, bool W>
+template <int R, int M>
 __global__ void __launch_bounds__(kCombineThreads)
 fused_push_combine(const float* __restrict__ values,
                    const int32_t* __restrict__ widx,
@@ -246,7 +263,7 @@ fused_push_combine(const float* __restrict__ values,
       int w[kSteps];
       float e[kSteps];
       int64_t src[kSteps];
-      load_steps<W>(widx, cidx, ev, mask, ids, n, local_budget, row,
+      load_steps<M>(widx, cidx, ev, mask, ids, n, local_budget, row,
                     base + lane, s_end, pol_stream, w, e, src);
       float v[kSteps];
 #pragma unroll
@@ -255,7 +272,7 @@ fused_push_combine(const float* __restrict__ values,
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) {
         if (src[u] >= n) continue;
-        const float x = W ? v[u] * e[u] : v[u];
+        const float x = message<M>(v[u], e[u]);
         // the slot the destination hashes to (multiply-shift: a
         // multiplicative hash scaled to [0, kTable))
         const uint32_t hash = static_cast<uint32_t>(w[u]) * 2654435761u;
@@ -273,7 +290,7 @@ fused_push_combine(const float* __restrict__ values,
 }
 
 // ---- shared-memory window: one CTA per block -------------------------- //
-template <int R, bool W>
+template <int R, int M>
 __device__ __forceinline__ void push_edge(
     const float* __restrict__ values, const int32_t* __restrict__ widx,
     const int32_t* __restrict__ cidx, const float* __restrict__ ev,
@@ -286,15 +303,12 @@ __device__ __forceinline__ void push_edge(
   const int64_t src = id_map[b * local_budget + k];
   if (src >= n) return;  // padded id_map entry reads nothing
   const int64_t w_row = widx[slot];
-  const float w = W ? ev[slot] : 1.0f;
-  for (int f = 0; f < d; ++f) {
-    float v = values[src * d + f];
-    if (W) v *= w;
-    atomic_reduce<R>(win + w_row * d + f, v);
-  }
+  const float e = reads_ev(M) ? ev[slot] : 0.0f;
+  for (int f = 0; f < d; ++f)
+    atomic_reduce<R>(win + w_row * d + f, message<M>(values[src * d + f], e));
 }
 
-template <int R, bool W>
+template <int R, int M>
 __global__ void __launch_bounds__(kThreads)
 fused_push_shared(const float* __restrict__ values,
                   const int32_t* __restrict__ widx,
@@ -312,7 +326,7 @@ fused_push_shared(const float* __restrict__ values,
   __syncthreads();
   const int64_t row = b * edge_budget;
   for (int64_t s = threadIdx.x; s < edge_budget; s += kThreads)
-    push_edge<R, W>(values, widx, cidx, ev, mask, id_map, win, n, b,
+    push_edge<R, M>(values, widx, cidx, ev, mask, id_map, win, n, b,
                     local_budget, row + s, d);
   __syncthreads();
   const float mul = fuse_epilogue ? eps[0] : 1.0f;
@@ -328,7 +342,7 @@ fused_push_shared(const float* __restrict__ values,
 }
 
 // ---- global window, d > 1: one CTA per chunk of kChunkSlots slots ---- //
-template <int R, bool W>
+template <int R, int M>
 __global__ void __launch_bounds__(kThreads)
 fused_push_global(const float* __restrict__ values,
                   const int32_t* __restrict__ widx,
@@ -345,7 +359,7 @@ fused_push_global(const float* __restrict__ values,
       (c + 1) * kChunkSlots < edge_budget ? (c + 1) * kChunkSlots : edge_budget;
   float* win = out + b * block_size * d;
   for (int64_t s = c * kChunkSlots + threadIdx.x; s < s_end; s += kThreads)
-    push_edge<R, W>(values, widx, cidx, ev, mask, id_map, win, n, b,
+    push_edge<R, M>(values, widx, cidx, ev, mask, id_map, win, n, b,
                     local_budget, row + s, d);
 }
 
@@ -367,7 +381,7 @@ struct Args {
   const float* eps;
   float* out;
   int64_t n, num_blocks, edge_budget, local_budget, block_size;
-  int d, fuse_epilogue;
+  int d, mode, fuse_epilogue;
 };
 
 cudaError_t launch_epilogue(const Args& a, cudaStream_t st) {
@@ -394,34 +408,34 @@ int64_t resident_ctas(K k, int threads, int smem) {
   return (int64_t)sms * (per_sm > 0 ? per_sm : 1);
 }
 
-template <int R, bool W>
+template <int R, int M>
 cudaError_t launch_shared(const Args& a, cudaStream_t st) {
   const int64_t bytes = a.block_size * a.d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_push_shared<R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_push_shared<R, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  fused_push_shared<R, W><<<(unsigned)a.num_blocks, kThreads, bytes, st>>>(
+  fused_push_shared<R, M><<<(unsigned)a.num_blocks, kThreads, bytes, st>>>(
       a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.eps, a.out, a.n,
       a.edge_budget, a.local_budget, a.block_size, a.d, a.fuse_epilogue);
   return cudaGetLastError();
 }
 
-template <int R, bool W>
+template <int R, int M>
 cudaError_t launch_combine(const Args& a, cudaStream_t st) {
   const int64_t chunks = (a.edge_budget + kCtaSlots - 1) / kCtaSlots;
   const int64_t total = a.num_blocks * chunks;
   if (total > 0) {
     constexpr int smem = kTable * (sizeof(int) + sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
-        fused_push_combine<R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_push_combine<R, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
     const int64_t resident =
-        resident_ctas(fused_push_combine<R, W>, kCombineThreads, smem);
+        resident_ctas(fused_push_combine<R, M>, kCombineThreads, smem);
     if (resident == 0) return cudaGetLastError();
     const int64_t grid = total < resident ? total : resident;
-    fused_push_combine<R, W><<<(unsigned)grid, kCombineThreads, smem, st>>>(
+    fused_push_combine<R, M><<<(unsigned)grid, kCombineThreads, smem, st>>>(
         a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
         a.edge_budget, a.local_budget, a.block_size, chunks, total);
     err = cudaGetLastError();
@@ -431,14 +445,14 @@ cudaError_t launch_combine(const Args& a, cudaStream_t st) {
 }
 
 // d = 1: the combining kernel; d > 1: one CTA per chunk
-template <int R, bool W>
+template <int R, int M>
 cudaError_t launch_global(const Args& a, cudaStream_t st) {
-  if (a.d == 1) return launch_combine<R, W>(a, st);
+  if (a.d == 1) return launch_combine<R, M>(a, st);
   const int64_t chunks = (a.edge_budget + kChunkSlots - 1) / kChunkSlots;
   const int64_t grid = a.num_blocks * chunks;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
   if (grid > 0) {
-    fused_push_global<R, W><<<(unsigned)grid, kThreads, 0, st>>>(
+    fused_push_global<R, M><<<(unsigned)grid, kThreads, 0, st>>>(
         a.values, a.widx, a.cidx, a.ev, a.mask, a.id_map, a.out, a.n,
         a.edge_budget, a.local_budget, a.block_size, a.d, chunks);
     cudaError_t err = cudaGetLastError();
@@ -452,16 +466,20 @@ bool window_shared(int64_t block_size, int d) {
          kSmemWindowBytes;
 }
 
-template <int R, bool W>
+template <int R, int M>
 cudaError_t launch_path(const Args& a, cudaStream_t st) {
-  return window_shared(a.block_size, a.d) ? launch_shared<R, W>(a, st)
-                                          : launch_global<R, W>(a, st);
+  return window_shared(a.block_size, a.d) ? launch_shared<R, M>(a, st)
+                                          : launch_global<R, M>(a, st);
 }
 
 template <int R>
-cudaError_t launch_w(const Args& a, cudaStream_t st) {
-  return a.ev != nullptr ? launch_path<R, true>(a, st)
-                         : launch_path<R, false>(a, st);
+cudaError_t launch_reduce(const Args& a, cudaStream_t st) {
+  switch (a.mode) {
+    case kMul: return launch_path<R, kMul>(a, st);
+    case kNone: return launch_path<R, kNone>(a, st);
+    case kAddEv: return launch_path<R, kAddEv>(a, st);
+    default: return launch_path<R, kAddOne>(a, st);
+  }
 }
 
 }  // namespace
@@ -473,26 +491,29 @@ extern "C" int tocab_fused_push_window_shared(int64_t block_size, int d) {
   return window_shared(block_size, d);
 }
 
-// Returns cudaGetLastError() after the launches (0 on success).  `ev` null
-// means unweighted; `eps` (device, 2 floats: mul, add) is read only when
-// fuse_epilogue is set.
+// Returns cudaGetLastError() after the launches (0 on success).  `mode`
+// is the message mode (0 mul, 1 none, 2 add-ev, 3 add-one); `ev` is read
+// by mul and add-ev and must be null for the others.  `eps` (device, 2
+// floats: mul, add) is read only when fuse_epilogue is set.
 extern "C" int tocab_fused_push(const float* values, const int32_t* widx,
                                 const int32_t* cidx, const float* ev,
                                 const uint8_t* mask, const int32_t* id_map,
                                 const float* eps, float* out, int64_t n,
                                 int64_t num_blocks, int64_t edge_budget,
                                 int64_t local_budget, int64_t block_size,
-                                int d, int reduce, int fuse_epilogue,
-                                void* stream) {
+                                int d, int reduce, int mode,
+                                int fuse_epilogue, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || reduce < kSum || reduce > kMax) return cudaErrorInvalidValue;
+  if (d < 1 || reduce < kSum || reduce > kMax || mode < kMul ||
+      mode > kAddOne || reads_ev(mode) != (ev != nullptr))
+    return cudaErrorInvalidValue;
   if (num_blocks == 0) return cudaSuccess;
   const Args a{values, widx, cidx, ev, mask, id_map, eps, out, n,
-               num_blocks, edge_budget, local_budget, block_size, d,
+               num_blocks, edge_budget, local_budget, block_size, d, mode,
                fuse_epilogue};
-  if (reduce == kSum) return launch_w<kSum>(a, st);
-  if (reduce == kMin) return launch_w<kMin>(a, st);
-  return launch_w<kMax>(a, st);
+  if (reduce == kSum) return launch_reduce<kSum>(a, st);
+  if (reduce == kMin) return launch_reduce<kMin>(a, st);
+  return launch_reduce<kMax>(a, st);
 }
 
 extern "C" const char* tocab_fused_push_error(int code) {

@@ -7,6 +7,14 @@ tensors on the card, check them, allocate the output, launch on
 ``torch.cuda.current_stream()`` and count the launch in
 ``cuda_build.launches``.  A launch the CUDA runtime refuses raises: there
 is no fallback.  Nothing here runs at import time.
+
+Both kernels form each edge's message in one of four modes (``MODES``),
+which is how the engines' ``combine`` reaches the card:
+
+* ``"mul"`` — ``v * ev`` (``combine=None`` on a weighted layout);
+* ``"none"`` — ``v`` (``UNWEIGHTED``, or no edge values);
+* ``"add_ev"`` — ``v + ev`` (``ADD_EDGE`` on a weighted layout);
+* ``"add_one"`` — ``v + 1`` (``ADD_EDGE`` on a layout without edge values).
 """
 from __future__ import annotations
 
@@ -19,23 +27,34 @@ from repro_torch.core.partition import REDUCE_IDENTITY
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import check_tensor as _check
 
-__all__ = ["fused_pull_cuda", "fused_push_cuda"]
+__all__ = ["fused_pull_cuda", "fused_push_cuda", "MODES", "signatures"]
 
 _REDUCE_CODE = {"sum": 0, "min": 1, "max": 2}
+#: message mode → the C interface's ``mode`` code
+_MODE_CODE = {"mul": 0, "none": 1, "add_ev": 2, "add_one": 3}
+MODES = tuple(_MODE_CODE)
+#: the modes that read an edge value
+_EDGE_MODES = ("mul", "add_ev")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def signatures(name: str) -> dict:
+    """The ctypes signatures of kernel ``name``'s library (``fused_pull``
+    or ``fused_push``)."""
     entry = f"tocab_{name}"
     sigs = {
         entry: ([_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                 _I64, _I32, _I32, _I32, _P], _I32),
+                 _I64, _I32, _I32, _I32, _I32, _P], _I32),
         f"{entry}_error": ([_I32], ctypes.c_char_p),
     }
     if name == "fused_push":
         sigs["tocab_fused_push_window_shared"] = ([_I64, _I32], _I32)
-    return cuda_build.load(name, sigs)
+    return sigs
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    return cuda_build.load(name, signatures(name))
 
 
 def _epilogue_tensor(epilogue, device) -> Optional[torch.Tensor]:
@@ -49,9 +68,18 @@ def _epilogue_tensor(epilogue, device) -> Optional[torch.Tensor]:
 
 def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
             edge_vals, edge_mask, id_map, *, block_size: int, reduce: str,
-            epilogue) -> torch.Tensor:
+            epilogue, mode: Optional[str]) -> torch.Tensor:
     if reduce not in _REDUCE_CODE:
         raise ValueError(f"unknown reduce {reduce!r}")
+    if mode is None:
+        mode = "mul" if edge_vals is not None else "none"
+    if mode not in _MODE_CODE:
+        raise ValueError(f"unknown message mode {mode!r}; expected one of "
+                         f"{MODES}")
+    if (mode in _EDGE_MODES) != (edge_vals is not None):
+        raise ValueError(f"message mode {mode!r} "
+                         + ("needs" if mode in _EDGE_MODES else "takes no")
+                         + " edge values")
     if epilogue is not None and reduce != "sum":
         raise ValueError(
             f"epilogue fusion is affine (out*mul+add) — only the sum "
@@ -91,8 +119,8 @@ def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
         rc = getattr(lib, f"tocab_{name}")(
             ptr(values), ptr(window_idx), ptr(compact_idx), ptr(edge_vals),
             ptr(edge_mask), ptr(id_map), ptr(eps), ptr(out), n, nb, eb, lb,
-            block_size, d, _REDUCE_CODE[reduce], int(eps is not None),
-            stream)
+            block_size, d, _REDUCE_CODE[reduce], _MODE_CODE[mode],
+            int(eps is not None), stream)
     cuda_build.check_launch(lib, f"tocab_{name}", rc)
     cuda_build.launches[name] += 1
     return out
@@ -100,20 +128,24 @@ def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
 
 def fused_pull_cuda(values: torch.Tensor, window_idx, compact_idx, edge_vals,
                     edge_mask, id_map, *, block_size: int, reduce: str = "sum",
-                    epilogue: Optional[Tuple] = None) -> torch.Tensor:
+                    epilogue: Optional[Tuple] = None,
+                    mode: Optional[str] = None) -> torch.Tensor:
     """Launch the fused pull kernel: ``values`` f32 ``(n, d)`` on the card,
     the blocked slabs as stored (int32 indices, bool mask, f32 edge values
-    or ``None`` for unweighted).  Returns f32 ``(n, d)``."""
+    or ``None`` for unweighted).  ``mode`` is one of ``MODES``; by default
+    ``"mul"`` with edge values and ``"none"`` without.  Returns f32
+    ``(n, d)``."""
     return _launch("fused_pull", values, window_idx, compact_idx, edge_vals,
                    edge_mask, id_map, block_size=block_size, reduce=reduce,
-                   epilogue=epilogue)
+                   epilogue=epilogue, mode=mode)
 
 
 def fused_push_cuda(values: torch.Tensor, window_idx, compact_idx, edge_vals,
                     edge_mask, id_map, *, block_size: int, reduce: str = "sum",
-                    epilogue: Optional[Tuple] = None) -> torch.Tensor:
+                    epilogue: Optional[Tuple] = None,
+                    mode: Optional[str] = None) -> torch.Tensor:
     """Launch the fused push kernel (arguments as :func:`fused_pull_cuda`,
     on a push layout).  Returns f32 ``(n, d)``."""
     return _launch("fused_push", values, window_idx, compact_idx, edge_vals,
                    edge_mask, id_map, block_size=block_size, reduce=reduce,
-                   epilogue=epilogue)
+                   epilogue=epilogue, mode=mode)

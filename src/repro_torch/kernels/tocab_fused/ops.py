@@ -5,7 +5,8 @@
 
 * ``"cuda"`` — the hand-written kernels in :mod:`.kernel`, the default for
   tensors on the card.  A CUDA tensor reaches the kernel or the call
-  raises; nothing falls back.
+  raises; nothing falls back.  The kernels take ``combine=None``,
+  ``UNWEIGHTED`` and ``ADD_EDGE`` (:func:`_kernel_mode`).
 * ``"torch"`` — the plain versions in :mod:`.ref`, the default for tensors
   on the CPU.
 
@@ -20,7 +21,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.balance import UNWEIGHTED
+from repro_torch.core.balance import ADD_EDGE, UNWEIGHTED
 from repro_torch.core.partition import BlockedGraph
 from repro_torch.core.tocab import _require_direction
 from repro_torch.obs.metrics import registry as _obs
@@ -67,17 +68,24 @@ def _backend(values: torch.Tensor, backend: Optional[str]) -> str:
     return backend
 
 
-def _kernel_edges(bg: BlockedGraph, combine):
-    """Edge values for the CUDA kernels: the stored slab (messages are
-    multiplied by it), or ``None`` when the graph is unweighted or the
-    combine is ``UNWEIGHTED``.  Other combines have no kernel."""
+def _kernel_mode(bg: BlockedGraph, combine):
+    """``(edge values or None, message mode)`` for the CUDA kernels:
+    ``combine=None`` multiplies by the stored edge values (``"mul"``, or
+    ``"none"`` on an unweighted layout), ``UNWEIGHTED`` ignores them
+    (``"none"``), ``ADD_EDGE`` adds them (``"add_ev"``, or ``"add_one"``:
+    ``v + 1`` on an unweighted layout, as the slab engines compute it).
+    Other combines have no kernel."""
+    ev = bg.edge_vals
     if combine is UNWEIGHTED:
-        return None
+        return None, "none"
+    if combine is ADD_EDGE:
+        return (ev, "add_ev") if ev is not None else (None, "add_one")
     if combine is not None:
         raise NotImplementedError(
             "the CUDA fused kernels take combine=None (multiply by the edge "
-            "value) or UNWEIGHTED; run other combines on CPU tensors")
-    return bg.edge_vals
+            "value), UNWEIGHTED or ADD_EDGE (add the edge value, 1 without "
+            "one); run other combines on CPU tensors")
+    return (ev, "mul") if ev is not None else (None, "none")
 
 
 def _run_kernel(launch, bg: BlockedGraph, values, reduce, combine,
@@ -86,9 +94,10 @@ def _run_kernel(launch, bg: BlockedGraph, values, reduce, combine,
         raise NotImplementedError(
             "the CUDA fused kernels take (n,) or (n, d) values")
     x = values[:, None] if values.ndim == 1 else values
-    out = launch(x, bg.window_idx, bg.compact_idx, _kernel_edges(bg, combine),
-                 bg.edge_mask, bg.id_map, block_size=bg.block_size,
-                 reduce=reduce, epilogue=epilogue)
+    ev, mode = _kernel_mode(bg, combine)
+    out = launch(x, bg.window_idx, bg.compact_idx, ev, bg.edge_mask,
+                 bg.id_map, block_size=bg.block_size, reduce=reduce,
+                 epilogue=epilogue, mode=mode)
     return out[:, 0] if values.ndim == 1 else out
 
 

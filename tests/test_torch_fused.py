@@ -336,16 +336,19 @@ def _edge_case_graph(seed=1, block=65536):
                         dedup=True)
 
 
-def _check_push(bg, n, reduce):
-    """The push kernel against the plain version over d None and 8,
-    weighted and unweighted, with and without the epilogue."""
+def _check_kernel(bg, n, reduce):
+    """The layout's kernel against the plain version over d None and 8,
+    weighted, unweighted and additive (``ADD_EDGE``), with and without the
+    epilogue."""
+    fused, plain = ((fused_pull, fused_pull_ref) if bg.direction == "pull"
+                    else (fused_push, fused_push_ref))
     for d in (None, 8):
         x = torch.from_numpy(
             _np_vals(n, d, seed=19, signed=reduce != "sum")).cuda()
-        for combine in (None, T.UNWEIGHTED):
+        for combine in (None, T.UNWEIGHTED, T.ADD_EDGE):
             for eps in ((None, (0.85, 0.01)) if reduce == "sum" else (None,)):
-                out = fused_push(bg, x, reduce, combine, eps)
-                ref = fused_push_ref(bg, x, reduce, combine, eps)
+                out = fused(bg, x, reduce, combine, eps)
+                ref = plain(bg, x, reduce, combine, eps)
                 torch.cuda.synchronize()
                 if reduce == "sum":
                     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6)
@@ -368,8 +371,56 @@ def test_cuda_push_edge_cases(reduce):
     assert int(bg.n_edges[1]) == 0 and bg.edge_budget % 128
     assert int(bg.n_local.min()) < bg.local_budget  # padded id_map entries
     before = cuda_build.launches["fused_push"]
-    _check_push(bg, g.n, reduce)
+    _check_kernel(bg, g.n, reduce)
     assert cuda_build.launches["fused_push"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
+def test_cuda_pull_edge_cases(reduce):
+    """The pull kernels (streaming at d = 1, one CTA per chunk at d = 8) on
+    the edge-case graph: destination 7's 6000 sources make one run of a
+    compact id longer than a 512-slot warp chunk (and the d = 8 kernel's
+    4096-slot chunk), carried across steps and added once a chunk; an
+    empty block; padded id_map entries; a slab padded to no
+    multiple of a chunk or of a warp's 4 batched 32-slot steps
+    (pad_edges_to=1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    g = _edge_case_graph()
+    bg = T.build_blocked(g, block_size=65536, direction="pull",
+                         pad_edges_to=1)
+    assert int(bg.n_edges[1]) == 0 and bg.edge_budget % 128
+    assert int(bg.n_local.min()) < bg.local_budget  # padded id_map entries
+    before = cuda_build.launches["fused_pull"]
+    _check_kernel(bg, g.n, reduce)
+    assert cuda_build.launches["fused_pull"] == before + 2 * (
+        3 * (2 if reduce == "sum" else 1))
+
+
+@pytest.mark.cuda
+def test_cuda_pull_more_chunks_than_resident_warps():
+    """Scale 22 (67 M edges): more 512-slot warp chunks than the card holds
+    warps at once (at most 64 an SM), so the streaming kernel's CTAs run
+    in many waves, across both blocks.  The sum is held against the plain
+    version run in float64 (a hub row's ~150,000 fp32 terms drift in the
+    plain version's own sequential atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    g = T.rmat_graph(scale=22, edge_factor=16, seed=5, weights=True)
+    bg = T.build_blocked(g, block_size=1 << 21, direction="pull")
+    assert bg.num_blocks * -(-bg.edge_budget // 512) > 132 * 64
+    x = torch.from_numpy(_np_vals(g.n, seed=21)).cuda()
+    for combine in (T.UNWEIGHTED, T.ADD_EDGE):
+        for reduce in ("sum", "min"):
+            out = fused_pull(bg, x, reduce, combine)
+            if reduce == "sum":
+                ref = fused_pull_ref(bg, x.double(), reduce, combine)
+                torch.testing.assert_close(out.double(), ref, rtol=1e-4,
+                                           atol=1e-6)
+            else:
+                assert torch.equal(out, fused_pull_ref(bg, x, reduce,
+                                                       combine))
 
 
 @pytest.mark.cuda
