@@ -76,11 +76,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. ``embedding_bag`` against its plain version: d 16, 24, 33 (the scalar
    path) and 64, sum and mean, weights and none, fp32 and bf16 tables,
    int32 and int64 ids, a zero-weight bag, out-of-range ids beside NaN
-   guard rows; then the main path, the entry point on BERT4Rec's 1,000,002
-   × 64 item table with cloze-label bags at ``serve_p99`` (512 × 200) and
-   ``train_batch`` (65,536 × 200), launched exactly once per call, held
-   against the plain version, bit-identical on a second launch, and timed
-   beside its byte bound, the plain version and ``F.embedding_bag``.
+   guard rows, at 300 bags of 17 ids (the split route) and 20,000 bags of
+   100 (the groups route; d = 33 the scalar one at both); the small cases
+   must reach every route of ``kernel.ROUTES``.  Then the main path, the
+   entry point on BERT4Rec's 1,000,002 × 64 item table with cloze-label
+   bags at ``serve_p99`` (512 × 200) and ``train_batch`` (65,536 × 200),
+   launched exactly once per call, held against the plain version,
+   bit-identical on a second launch, and timed (``ms``; ``device_ms``
+   under CUDA-graph replay) beside its byte bound, the plain version,
+   ``F.embedding_bag``, the earlier kernel (``previous_ms``, built from
+   ``benchmarks/torch_embedding_bag_variants.py``'s copy) and that
+   benchmark's floors (the id and weight streams read alone; the same row
+   reads without weights); ``design`` names the route each shape took.
 8. BERT4Rec serving at its published width (random weights from ``SEED``):
    (a) the fp32 encoder of 8 users on the card vs on the CPU; (b)
    ``score_loop`` at 512 users, top-10 of 10⁶ items, 20 reps, every id
@@ -96,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -159,6 +167,9 @@ SOURCES = {
 
 #: where the graph kernels' earlier designs, timed as ``previous_ms``, live
 PREVIOUS_SOURCE = "benchmarks/torch_graph_kernel_variants.py (PREVIOUS_SRC)"
+#: and embedding_bag's earlier kernel
+EMBEDDING_BAG_PREVIOUS = ("benchmarks/torch_embedding_bag_variants.py "
+                          "(PREVIOUS_SRC)")
 
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the operation
 #: bound of attention at bf16
@@ -1400,15 +1411,17 @@ def attention_timing(lm: dict, seed: int, log) -> list:
 # --------------------------------------------------------------------- #
 # phase 7: embedding_bag at the BERT4Rec table size
 # --------------------------------------------------------------------- #
-def phase_embedding_bag(seed: int, log) -> list:
+def phase_embedding_bag(seed: int, log, probes, previous) -> list:
     """The ``embedding_bag`` kernel against its plain version: small cases
     over widths, modes, weights, table and id types, an all-zero-weight
     bag and out-of-range ids (a NaN guard row on each side of the table:
-    reading one would show); then the main path — the entry point on the
-    BERT4Rec item table with cloze-label bags at ``serve_p99`` and
-    ``train_batch``, launch counts set to 0 just before and read just
-    after — its checks, repeat launches bit for bit, and each shape timed
-    beside its bound, its plain version and ``F.embedding_bag``."""
+    reading one would show), at bag counts that reach every route; then
+    the main path — the entry point on the BERT4Rec item table with
+    cloze-label bags at ``serve_p99`` and ``train_batch``, launch counts
+    set to 0 just before and read just after — its checks, repeat launches
+    bit for bit, and each shape timed beside its bound, its plain version,
+    ``F.embedding_bag``, the earlier kernel (``previous``) and the floor
+    ``probes`` (``benchmarks/torch_embedding_bag_variants.py``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1418,6 +1431,7 @@ def phase_embedding_bag(seed: int, log) -> list:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag import kernel as ek
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
 
     t0 = time.perf_counter()
@@ -1446,8 +1460,12 @@ def phase_embedding_bag(seed: int, log) -> list:
             raise AssertionError("embedding_bag did not launch exactly once")
         return out
 
-    V, B, L = 5000, 300, 17
-    for d in (16, 24, 33, 64):  # 33: the scalar path
+    # 300 bags of 17: the split route; 20,000 of 100: the groups route
+    # (d = 33: the scalar route at both)
+    V = 5000
+    ek.routes.clear()
+    for (B, L), d in itertools.product(((300, 17), (20000, 100)),
+                                       (16, 24, 33, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             guarded = torch.full((V + 2, d), float("nan"), device=dev,
                                  dtype=dtype)
@@ -1459,14 +1477,17 @@ def phase_embedding_bag(seed: int, log) -> list:
             w = rng.random((B, L), dtype=np.float32)
             w[5] = 0.0  # a bag of zero weight
             wt = torch.from_numpy(w).to(dev)
+            # the large bags in sum only: the modes differ in the wrapper
+            modes = ("sum", "mean") if B < 1000 else ("sum",)
             for id_dtype in (torch.int32, torch.int64):
                 it = torch.from_numpy(ids).to(dev, id_dtype)
-                for mode in ("sum", "mean"):
+                for mode in modes:
                     for weights in (wt, None):
                         out = launch(table, it, weights, mode=mode)
                         ref = embedding_bag_ref(table, it, weights, mode=mode)
                         torch.cuda.synchronize()
-                        what = (f"d={d} {dtype} ids={id_dtype} {mode} "
+                        what = (f"B={B} L={L} d={d} {dtype} "
+                                f"ids={id_dtype} {mode} "
                                 f"weights={weights is not None}")
                         if out.dtype != dtype or out.shape != (B, d):
                             raise AssertionError(f"{what}: {out.dtype} "
@@ -1483,6 +1504,10 @@ def phase_embedding_bag(seed: int, log) -> list:
                             raise AssertionError(f"{what}: two launches "
                                                  "differ")
     small_cases = cases
+    small_routes = dict(ek.routes)
+    if set(small_routes) != set(ek.ROUTES):
+        raise AssertionError(f"the small cases took the routes "
+                             f"{small_routes}; want all of {ek.ROUTES}")
 
     # the main path: BERT4Rec's item table, bags of cloze labels
     cfg = get_arch("bert4rec").make_model_cfg()
@@ -1501,15 +1526,23 @@ def phase_embedding_bag(seed: int, log) -> list:
     modes = ("sum", "mean")
     torch.cuda.synchronize()
     cuda_build.reset_launches()
-    outs, launches = {}, {}
+    ek.routes.clear()
+    outs, launches, designs = {}, {}, {}
     for name, (ids, w) in bags.items():
         before = cuda_build.launches["embedding_bag"]
+        routes_before = dict(ek.routes)
         for mode in modes:
             outs[name, mode] = embedding_bag(table, ids, w, mode=mode)
         launches[name] = cuda_build.launches["embedding_bag"] - before
+        designs[name] = sorted(r for r in ek.ROUTES
+                               if ek.routes[r] != routes_before.get(r, 0))
     torch.cuda.synchronize()
     counted = dict(cuda_build.launches)
-    emit({"phase": "embedding_bag_main_path_launches", "launches": counted})
+    emit({"phase": "embedding_bag_main_path_launches", "launches": counted,
+          "designs": designs})
+    if any(len(v) != 1 for v in designs.values()):
+        raise AssertionError(f"a shape's calls took several routes: "
+                             f"{designs}")
     if counted != {"embedding_bag": len(bags) * len(modes)}:
         raise AssertionError(f"the embedding_bag path launched {counted}; "
                              f"want embedding_bag = {len(bags) * len(modes)}")
@@ -1526,15 +1559,38 @@ def phase_embedding_bag(seed: int, log) -> list:
                                embedding_bag(table, ids, w, mode=mode)):
                 raise AssertionError(f"embedding_bag {name} {mode}: two "
                                      "launches differ")
-        ms = cuda_ms(lambda: embedding_bag_cuda(table, ids, w), reps=20,
-                     warmup=2)
-        plain_ms = cuda_ms(lambda: embedding_bag_ref(table, ids, w), reps=3)
+        def run():
+            return embedding_bag_cuda(table, ids, w)
+
+        def run_previous():
+            return previous(table, ids, w)
+
         ids64 = ids.long()  # F.embedding_bag's documented id type
-        lib_ms = cuda_ms(lambda: F.embedding_bag(
-            ids64, table, per_sample_weights=w, mode="sum"), reps=20, warmup=2)
-        lib_err = float((outs[name, "sum"] - F.embedding_bag(
-            ids64, table, per_sample_weights=w, mode="sum")).abs().max())
+
+        def run_library():
+            return F.embedding_bag(ids64, table, per_sample_weights=w,
+                                   mode="sum")
+
+        # in turns: kernel, previous, previous, kernel (host loop), then
+        # each under CUDA-graph replay (device time, the host taken out)
+        ms_a = cuda_ms(run, reps=20, warmup=2)
+        prev_a = cuda_ms(run_previous, reps=20, warmup=2)
+        prev_b = cuda_ms(run_previous, reps=20, warmup=2)
+        ms_b = cuda_ms(run, reps=20, warmup=2)
+        ms, previous_ms = (ms_a + ms_b) / 2, (prev_a + prev_b) / 2
+        device_ms = graph_ms(run)
+        previous_device_ms = graph_ms(run_previous)
+        plain_ms = cuda_ms(lambda: embedding_bag_ref(table, ids, w), reps=3)
+        lib_ms = cuda_ms(run_library, reps=20, warmup=2)
+        lib_device_ms = graph_ms(run_library)
+        lib_err = float((outs[name, "sum"] - run_library()).abs().max())
+        err_prev, share_prev = check(f"{name} previous", run_previous(),
+                                     embedding_bag_ref(table, ids, w))
         del ids64
+        floors = {"streams_ms": probes.streams(ids, w),
+                  "gathers_ms": probes.gathers(table, ids, hint=False),
+                  "gathers_l2_evict_last_ms": probes.gathers(table, ids,
+                                                             hint=True)}
         # least bytes: each distinct row once, the ids and weights once, the
         # output once; 2 flops per gathered element
         unique_rows = int(torch.unique(ids).numel())
@@ -1560,12 +1616,20 @@ def phase_embedding_bag(seed: int, log) -> list:
             "atol": FP32_KERNEL_TOL, "tolerance_used": share,
             "shape": {"cell": name, "table": list(table.shape),
                       "ids": list(ids.shape), "unique_rows": unique_rows},
+            "design": designs[name][0], "device_ms": device_ms,
+            "previous_ms": previous_ms,
+            "previous_device_ms": previous_device_ms,
+            "previous_source": EMBEDDING_BAG_PREVIOUS,
+            "previous_max_abs_err": err_prev,
+            "previous_tolerance_used": share_prev,
+            "library_device_ms": lib_device_ms, "floors": floors,
             "library_max_abs_err": lib_err,
             "gathered_tb_per_s": ids.numel() * d * 4 / (ms * 1e-3) / 1e12})
     del outs, bags, table
     torch.cuda.empty_cache()
     emit({"phase": "embedding_bag_vs_plain", "cases": cases,
-          "small_cases": small_cases, "full": full,
+          "small_cases": small_cases, "small_case_routes": small_routes,
+          "full": full,
           "tolerance": {"float32": {"rtol": FP32_KERNEL_TOL,
                                     "atol": FP32_KERNEL_TOL},
                         "bfloat16": {"rtol": BF16_RTOL,
@@ -1769,6 +1833,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
+    from benchmarks import torch_embedding_bag_variants as ebv
     from benchmarks.torch_graph_kernel_variants import (
         PREVIOUS_SRC, PROBE_SRC, Floors, Previous, finish_build, start_build)
     from repro_torch.kernels import cuda_build
@@ -1776,12 +1841,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     probe_dir = tempfile.TemporaryDirectory()
     probe = start_build({"floor_probes": PROBE_SRC,
-                         "previous_designs": PREVIOUS_SRC},
+                         "previous_designs": PREVIOUS_SRC,
+                         "embedding_bag_probes": ebv.PROBE_SRC,
+                         "embedding_bag_previous": ebv.PREVIOUS_SRC},
                         Path(probe_dir.name))
     logs = cuda_build.build()
     probe_libs = finish_build(probe)
     floors = Floors(probe_libs["floor_probes"])
     previous = Previous(probe_libs["previous_designs"])
+    eb_probes = ebv.Probes(probe_libs["embedding_bag_probes"])
+    eb_previous = ebv.Previous(probe_libs["embedding_bag_previous"])
     probe_dir.cleanup()  # the libraries stay loaded
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs) + sorted(probe_libs)})
@@ -1797,7 +1866,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm = phase_lm(SEED, log)
     records += attention_timing(lm, SEED, log)
-    records += phase_embedding_bag(SEED, log)
+    records += phase_embedding_bag(SEED, log, eb_probes, eb_previous)
     phase_bert4rec(SEED, log)
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

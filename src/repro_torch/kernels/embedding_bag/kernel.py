@@ -5,11 +5,14 @@ The source is built and loaded by :mod:`repro_torch.kernels.cuda_build`
 (``nvcc`` for ``sm_90a`` on first use, ``ctypes``).  The launcher takes
 tensors on the card, checks them, allocates the output, launches on
 ``torch.cuda.current_stream()`` and counts the launch in
-``cuda_build.launches["embedding_bag"]``.  A launch the CUDA runtime
-refuses raises: there is no fallback.  Nothing here runs at import time.
+``cuda_build.launches["embedding_bag"]``, and the route the source chose
+for it (:data:`ROUTES`: it picks one from ``B``, ``d`` and the card's SM
+count) in :data:`routes`.  A launch the CUDA runtime refuses
+raises: there is no fallback.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -18,18 +21,27 @@ import torch
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import check_tensor
 
-__all__ = ["embedding_bag_cuda", "DTYPES", "ID_DTYPES"]
+__all__ = ["embedding_bag_cuda", "DTYPES", "ID_DTYPES", "ROUTES", "routes"]
 
 #: table (and output) types the kernel takes → its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: id types it reads in place → its idx64 flag
 ID_DTYPES = {torch.int32: 0, torch.int64: 1}
+#: the source's designs, by the code its ``embedding_bag_route`` returns:
+#: one bag a lane group (``groups``, many bags), a bag's ids split over a
+#: CTA's groups (``split``, few bags), one element a load (``scalar``: a
+#: row that is no whole number of 16-byte chunks)
+ROUTES = ("groups", "split", "scalar")
+
+#: launches per route, counted where :func:`embedding_bag_cuda` launches
+routes: collections.Counter = collections.Counter()
 
 _P, _I64, _I32, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
     ctypes.c_float
 _SIGNATURES = {
     "embedding_bag": ([_P, _P, _P, _F, _P, _I64, _I64, _I64, _I32, _I32,
                        _I32, _P], _I32),
+    "embedding_bag_route": ([_P, _P, _I64, _I64, _I32, _I32], _I32),
     "embedding_bag_error": ([_I32], ctypes.c_char_p),
 }
 
@@ -42,7 +54,9 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     the fp32 ``weights`` or, when they are None, ``weight`` everywhere.
     ``table`` fp32 or bf16 ``(V, d)``, ``indices`` int32 or int64
     ``(B, L)``, all contiguous on one card.  Returns ``(B, d)`` in
-    ``table.dtype``, summed in fp32 in the order ``l = 0..L-1``."""
+    ``table.dtype``, summed in fp32 in a fixed order (``l = 0..L-1``; on
+    the ``split`` route per contiguous part of the bag, then the parts in
+    order), so a repeat is bit-identical."""
     if not table.is_cuda:
         raise ValueError("embedding_bag: table must be a CUDA tensor")
     if table.dtype not in DTYPES:
@@ -66,6 +80,10 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
         return out  # nothing to launch
     lib = cuda_build.load("embedding_bag", _SIGNATURES)
     with torch.cuda.device(dev):
+        route = lib.embedding_bag_route(table.data_ptr(), out.data_ptr(), B,
+                                        L, d, DTYPES[table.dtype])
+        if route < 0:
+            cuda_build.check_launch(lib, "embedding_bag", -1 - route)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.embedding_bag(
             table.data_ptr(), indices.data_ptr(),
@@ -74,4 +92,5 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
             ID_DTYPES[indices.dtype], stream)
     cuda_build.check_launch(lib, "embedding_bag", rc)
     cuda_build.launches["embedding_bag"] += 1
+    routes[ROUTES[route]] += 1
     return out
