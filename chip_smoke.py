@@ -94,6 +94,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    checked tie-aware against fp32 scores, recall of the fp32 top-10
    reported; (c) ``bert4rec_retrieve`` over 10⁶ candidates vs float64.  No
    port kernel runs here: every launch count must stay 0.
+9. Traversal on phase 4's graph, before phase 6 frees it
+   (``repro_torch.core.traversal``): BFS from 8 Graph500 search keys
+   drawn from ``SEED`` among vertices of out-degree ≥ 1, ``impl="fused"``
+   and flat (``bg_pull=None``), and from the first key on the slab
+   engine; BC from that key, fused, flat and ``schedule="balanced"`` (its
+   σ pull reaches ``tocab_spmm``); BFS and BC on the layout's unweighted
+   view (``edge_vals=None``: with ``combine=None`` they multiply by the
+   edge value, so a weight-0 edge would not carry); SSSP from that key on
+   the weighted layout (``ADD_EDGE``), fused and flat; CC fused and flat,
+   with Gᵀ sorted on the card.  Depths, levels, direction counts,
+   distances and labels equal the flat path's exactly, BC's σ and scores
+   pass ``assert_close`` at fp32 defaults, and every result meets
+   invariants over all edges (BFS: a parent one level up, no edge skips
+   a level; SSSP: no edge relaxes, a tight in-edge per reached vertex;
+   CC: equal labels across every edge, each label its own root).  Some
+   BFS takes both Beamer directions; ``fused_pull`` launches at least
+   once per fused pull (BFS pull levels, BC's levels and pull levels,
+   SSSP and CC iterations), ``tocab_spmm`` at least once in balanced BC,
+   each path's counts set to 0 just before it.  ``traversal`` lines give
+   ms per traversal, levels or iterations, push/pull counts, GTEPS
+   (out-edges of the reached vertices over seconds, Graph500's TEPS) and
+   ms per push and per pull level (the time between two frontier reads).
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -871,6 +893,320 @@ def time_balanced_bins(main: dict, contrib):
               lambda: balanced_pull(bp, contrib, "sum", UNWEIGHTED), reps=3),
           "balanced_push_ms": cuda_ms(
               lambda: balanced_push(bq, contrib, "sum", UNWEIGHTED), reps=3)})
+
+
+# --------------------------------------------------------------------- #
+# phase 9: traversal on the main path's graph
+# --------------------------------------------------------------------- #
+#: BFS search keys drawn from SEED among vertices of out-degree ≥ 1:
+#: Graph500 draws 64; 8 keep the phase inside the script's time budget
+TRAVERSAL_SOURCES = 8
+
+
+class LevelClock:
+    """Wall time of each traversal level by Beamer direction, with no sync
+    added: a level lies between two frontier reads of
+    ``repro_torch.core.traversal``, each of which waits for the card."""
+
+    def __init__(self):
+        from repro_torch.core import traversal
+
+        self._cls = traversal._Frontier
+        self._orig = self._cls.direction
+        self.stamps = []
+
+    def __enter__(self):
+        orig, stamps = self._orig, self.stamps
+
+        def direction(state, algo):
+            use_pull = orig(state, algo)
+            stamps.append((time.perf_counter(), use_pull))
+            return use_pull
+
+        self._cls.direction = direction
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.direction = self._orig
+
+    def take(self) -> dict:
+        """ms of the push and the pull levels since the last take."""
+        out = {"push_level_ms": [], "pull_level_ms": []}
+        for (t0, use_pull), (t1, _) in zip(self.stamps, self.stamps[1:]):
+            if use_pull is not None:
+                key = "pull_level_ms" if use_pull else "push_level_ms"
+                out[key].append(1e3 * (t1 - t0))
+        self.stamps.clear()
+        return out
+
+
+def transpose_on_card(dg):
+    """Gᵀ as a DeviceGraph built on the card from ``dg``'s arrays (stable
+    sort by destination), unweighted: CC's backward pull."""
+    import torch
+
+    from repro_torch.core import DeviceGraph
+
+    order = torch.sort(dg.dst, stable=True).indices
+    rowptr = torch.zeros(dg.n + 1, dtype=torch.int32, device=dg.device)
+    rowptr[1:] = torch.cumsum(dg.in_degree, 0)
+    return DeviceGraph(n=dg.n, src=dg.dst[order], dst=dg.src[order],
+                       rowptr=rowptr, out_degree=dg.in_degree,
+                       in_degree=dg.out_degree)
+
+
+def timed_run(fn):
+    """(result, seconds) of ``fn()`` between two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_bfs_invariants(what: str, dg, depth, source: int):
+    """Every reached vertex but the source has an in-neighbour one level
+    up, and no edge skips a level (every edge carries: unweighted)."""
+    import torch
+
+    from repro_torch.core import INF_DEPTH
+
+    du, dv = depth[dg.src.long()], depth[dg.dst.long()]
+    if bool(((du < INF_DEPTH) & (dv > du + 1)).any()):
+        raise AssertionError(f"{what}: an edge skips a level")
+    parent = torch.zeros(dg.n, dtype=torch.bool, device=depth.device)
+    parent[dg.dst.long()[(du < INF_DEPTH) & (dv == du + 1)]] = True
+    parent[source] = True
+    if not bool(parent[depth < INF_DEPTH].all()):
+        raise AssertionError(f"{what}: a reached vertex has no parent")
+
+
+def check_sssp_invariants(what: str, dg, dist, source: int):
+    """dist[v] ≤ dist[u] + w on every edge (in fp32, as relaxed), with
+    equality on some in-edge of each reached vertex but the source."""
+    import torch
+
+    cand = dist[dg.src.long()] + dg.vals
+    dv = dist[dg.dst.long()]
+    if not bool((dv <= cand).all()):
+        raise AssertionError(f"{what}: an edge still relaxes")
+    tight = torch.zeros(dg.n, dtype=torch.bool, device=dist.device)
+    tight[dg.dst.long()[(cand == dv) & torch.isfinite(cand)]] = True
+    tight[source] = True
+    if not bool(tight[torch.isfinite(dist)].all()):
+        raise AssertionError(f"{what}: a reached vertex has no tight edge")
+
+
+def check_cc_invariants(what: str, dg, labels):
+    lab = labels.long()
+    if not bool((lab[dg.src.long()] == lab[dg.dst.long()]).all()):
+        raise AssertionError(f"{what}: an edge joins two labels")
+    if not bool((lab[lab] == lab).all()):
+        raise AssertionError(f"{what}: a label is not its own root")
+
+
+def check_exact(what: str, out, ref):
+    import torch
+
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        bad = int((out != ref).sum()) if out.shape == ref.shape else -1
+        raise AssertionError(f"{what}: {bad} entries differ from the flat "
+                             "path (must match exactly)")
+
+
+def close_stats(out, ref) -> dict:
+    """max |out - ref| and the worst entry's share of assert_close's fp32
+    defaults (rtol 1.3e-6, atol 1e-5)."""
+    import torch
+
+    diff = (out - ref).abs()
+    share = diff / (1e-5 + 1.3e-6 * ref.abs())
+    return {"max_abs_err": float(diff.max()),
+            "tolerance_used": float(share.max()),
+            "nonfinite": int((~torch.isfinite(ref)).sum())}
+
+
+def reached_edges(dg, reached) -> int:
+    """Edges of the traversed component: out-edges of reached vertices."""
+    import torch
+
+    return int(torch.where(reached, dg.out_degree, 0).sum(dtype=torch.int64))
+
+
+def phase_traversal(main: dict, seed: int, log) -> dict:
+    """BFS, BC, SSSP and CC on the main path's scale-24 graph: fused,
+    flat, and slab (BFS) or balanced (BC), each held against the flat path
+    and invariants over all edges; returns the launch counts."""
+    import torch
+
+    from benchmarks.torch_paper_figs import search_keys
+    from repro_torch.core import (INF_DEPTH, bc, bfs, connected_components,
+                                  sssp)
+    from repro_torch.kernels import cuda_build
+
+    t_phase = time.perf_counter()
+    dg, bp = main["dg"], main["pull"]
+    n, m = main["n"], main["m"]
+    # BFS and BC multiply the frontier by the edge value (reference
+    # semantics): they run on the layout's unweighted view
+    dgu = dataclasses.replace(dg, vals=None)
+    bpu = dataclasses.replace(bp, edge_vals=None)
+    zero_weight = int((dg.vals == 0).sum())
+    sources = search_keys(dg.out_degree, TRAVERSAL_SOURCES, seed)
+    launches = {}
+    lines = []
+    clock = LevelClock()
+
+    def record(algo, engine, runs, edges, **extra):
+        secs = [r["seconds"] for r in runs]
+        gteps = [e / s / 1e9 for e, s in zip(edges, secs)]
+        line = {"phase": "traversal", "algo": algo, "engine": engine,
+                "ms": [1e3 * s for s in secs], "gteps": gteps,
+                "gteps_hmean": len(gteps) / sum(1 / g for g in gteps),
+                "traversed_edges": edges, "zero_weight_edges": zero_weight,
+                **{k: [r[k] for r in runs] for k in runs[0]
+                   if k != "seconds"},
+                **extra}
+        emit(line)
+        lines.append(line)
+
+    def launched(name, label, want):
+        got = dict(cuda_build.launches)
+        launches[label] = got
+        if got.get(name, 0) < want:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{got.get(name, 0)} times, fewer than "
+                                 f"the {want} its runs need")
+
+    with clock:
+        # ---- BFS: 8 search keys, fused and flat; one slab ---- #
+        results = {}
+        for engine, bg_, kw in (("fused", bpu, {"impl": "fused"}),
+                                ("flat", None, {})):
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            runs, edges, levels = [], [], {"push_level_ms": [],
+                                           "pull_level_ms": []}
+            for s in sources:
+                (depth, lv, n_push, n_pull), secs = timed_run(
+                    lambda: bfs(dgu, bg_, s, **kw))
+                for k, v in clock.take().items():
+                    levels[k] += v
+                results[(engine, s)] = (depth, lv, n_push, n_pull)
+                runs.append({"source": s, "seconds": secs, "levels": lv,
+                             "n_push": n_push, "n_pull": n_pull})
+                edges.append(reached_edges(dgu, depth < INF_DEPTH))
+            if engine == "fused":
+                launched("fused_pull", "bfs/fused",
+                         sum(r["n_pull"] for r in runs))
+            record("bfs", engine, runs, edges, **levels)
+        s0 = sources[0]
+        (depth, lv, n_push, n_pull), secs = timed_run(
+            lambda: bfs(dgu, bpu, s0, impl="slab"))
+        record("bfs", "slab", [{"source": s0, "seconds": secs, "levels": lv,
+                                "n_push": n_push, "n_pull": n_pull}],
+               [reached_edges(dgu, depth < INF_DEPTH)], **clock.take())
+        results[("slab", s0)] = (depth, lv, n_push, n_pull)
+        for (engine, s), (depth, lv, n_push, n_pull) in results.items():
+            flat = results[("flat", s)]
+            check_exact(f"bfs/{engine} from {s}: depth", depth, flat[0])
+            if (lv, n_push, n_pull) != flat[1:]:
+                raise AssertionError(f"bfs/{engine} from {s}: levels and "
+                                     f"directions {(lv, n_push, n_pull)} "
+                                     f"!= flat {flat[1:]}")
+            if engine == "fused":
+                check_bfs_invariants(f"bfs from {s}", dgu, depth, s)
+        both = [s for s in sources if results[("fused", s)][2] >= 1
+                and results[("fused", s)][3] >= 1]
+        if not both:
+            raise AssertionError("no BFS took both Beamer directions")
+        del results
+
+        # ---- BC from one key: fused, flat, balanced ---- #
+        bc_out = {}
+        for engine, bg_, kw in (("fused", bpu, {"impl": "fused"}),
+                                ("flat", None, {}),
+                                ("balanced", bpu, {"schedule": "balanced"})):
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            (scores, depth, sigma), secs = timed_run(
+                lambda: bc(dgu, bg_, s0, **kw))
+            levels = clock.take()
+            n_levels = len(levels["push_level_ms"]) + len(
+                levels["pull_level_ms"])
+            if engine == "fused":  # σ through fused_pull at every level
+                launched("fused_pull", "bc/fused",
+                         n_levels + len(levels["pull_level_ms"]))
+            elif engine == "balanced":
+                launched("tocab_spmm", "bc/balanced", 1)
+            bc_out[engine] = (scores, depth, sigma)
+            record("bc", engine, [{"source": s0, "seconds": secs,
+                                   "levels": n_levels,
+                                   "forward_ms": sum(
+                                       levels["push_level_ms"]
+                                       + levels["pull_level_ms"])}],
+                   [reached_edges(dgu, depth < INF_DEPTH)], **levels)
+        scores_f, depth_f, sigma_f = bc_out["flat"]
+        for engine in ("fused", "balanced"):
+            scores, depth, sigma = bc_out[engine]
+            check_exact(f"bc/{engine}: depth", depth, depth_f)
+            stats = {"sigma": close_stats(sigma, sigma_f),
+                     "scores": close_stats(scores, scores_f)}
+            emit({"phase": "traversal_bc_vs_flat", "engine": engine,
+                  **stats})
+            torch.testing.assert_close(
+                sigma, sigma_f, msg=lambda t: f"bc/{engine} sigma: {t}")
+            torch.testing.assert_close(
+                scores, scores_f, msg=lambda t: f"bc/{engine} scores: {t}")
+        del bc_out, scores_f, depth_f, sigma_f
+
+    # ---- SSSP on the weighted layout: fused and flat ---- #
+    sssp_out = {}
+    for engine, bg_, kw in (("fused", bp, {"impl": "fused"}),
+                            ("flat", None, {})):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        (dist, iters), secs = timed_run(lambda: sssp(dg, bg_, s0, **kw))
+        if engine == "fused":
+            launched("fused_pull", "sssp/fused", iters)
+        sssp_out[engine] = dist
+        record("sssp", engine, [{"source": s0, "seconds": secs,
+                                 "iterations": iters}],
+               [reached_edges(dg, torch.isfinite(dist))],
+               ms_per_iteration=1e3 * secs / iters)
+    check_exact("sssp/fused: dist", sssp_out["fused"], sssp_out["flat"])
+    check_sssp_invariants("sssp", dg, sssp_out["fused"], s0)
+    del sssp_out
+
+    # ---- CC: fused and flat, Gᵀ built on the card ---- #
+    if n > 2 ** 24:
+        raise AssertionError(f"CC's fp32 labels are exact only up to 2^24 "
+                             f"vertices, this graph has {n}")
+    (dg_t, t_secs) = timed_run(lambda: transpose_on_card(dg))
+    emit({"phase": "traversal_transpose", "where": "card",
+          "seconds": t_secs})
+    cc_out = {}
+    for engine, bg_, kw in (("fused", bp, {"impl": "fused"}),
+                            ("flat", None, {})):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        (labels, iters), secs = timed_run(
+            lambda: connected_components(dg, dg_t, bg_, **kw))
+        if engine == "fused":
+            launched("fused_pull", "cc/fused", iters)
+        cc_out[engine] = labels
+        record("cc", engine, [{"seconds": secs, "iterations": iters}], [m],
+               ms_per_iteration=1e3 * secs / iters,
+               components=int(torch.unique(labels).numel()))
+    check_exact("cc/fused: labels", cc_out["fused"], cc_out["flat"])
+    check_cc_invariants("cc", dg, cc_out["fused"])
+    del cc_out, dg_t
+    emit({"phase": "traversal_launches", "launches": launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    log(f"traversal: sources={sources} zero_weight_edges={zero_weight}")
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -1806,6 +2142,7 @@ def main(argv=None) -> int:
                     help="append per-case detail to this file")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1862,12 +2199,14 @@ def main(argv=None) -> int:
     phase_attention_kernels(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
     records = phase_timing(main_state, log, floors, previous)
+    phase_traversal(main_state, SEED, log)
     del main_state
     torch.cuda.empty_cache()
     lm = phase_lm(SEED, log)
     records += attention_timing(lm, SEED, log)
     records += phase_embedding_bag(SEED, log, eb_probes, eb_previous)
     phase_bert4rec(SEED, log)
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,8 @@ Public surface:
 * :mod:`repro_torch.core.balance` — build-time sparsity classification
   and the balanced engines
 * :mod:`repro_torch.core.tocab` — blocked pull/push engines + reduction phase
-* :mod:`repro_torch.core.pagerank` / :mod:`repro_torch.core.spmv` — the
-  paper's benchmark algorithms
+* :mod:`repro_torch.core.pagerank` / :mod:`repro_torch.core.spmv` /
+  :mod:`repro_torch.core.traversal` — the paper's benchmark algorithms
 """
 from .graph import (  # noqa: F401
     DeviceGraph,
@@ -58,3 +58,6 @@ from .tocab import (  # noqa: F401
 )
 from .pagerank import PR_VARIANTS, pagerank, pagerank_iteration  # noqa: F401
 from .spmv import SPMV_VARIANTS, spmv  # noqa: F401
+from .traversal import (  # noqa: F401
+    DEFAULT_ALPHA, INF_DEPTH, bc, bfs, connected_components, sssp,
+)

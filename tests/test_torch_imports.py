@@ -6,7 +6,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+PATTERN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\.|\s|,|$)|from\s+(jax|repro)(\.|\s))",
+    re.MULTILINE)
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
@@ -22,6 +26,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels.embedding_bag.ops\n"
         "import repro_torch.data.recsys, repro_torch.models.bert4rec\n"
         "import repro_torch.configs.recsys_archs\n"
+        "import repro_torch.core.traversal\n"
+        "import repro_torch.obs.export, repro_torch.obs.report\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
@@ -32,12 +38,21 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert out.stdout.strip() == "", out.stdout
 
 
+def _offenders(files, root):
+    return [f"{p.relative_to(root)}: {m.group(0).strip()}"
+            for p in files for m in PATTERN.finditer(p.read_text())]
+
+
 def test_no_jax_or_repro_import_lines():
-    pattern = re.compile(
-        r"^\s*(import\s+(jax|repro)(\.|\s|,|$)|from\s+(jax|repro)(\.|\s))",
-        re.MULTILINE)
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert files
-    offenders = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
-                 for p in files for m in pattern.finditer(p.read_text())]
-    assert offenders == []
+    assert _offenders(files, SRC) == []
+
+
+def test_card_scripts_import_neither_jax_nor_repro():
+    """``chip_smoke.py`` and the port's benchmarks run on the card's
+    machine, which has no JAX."""
+    files = [ROOT / "chip_smoke.py",
+             *sorted((ROOT / "benchmarks").glob("torch_*.py"))]
+    assert ROOT / "benchmarks" / "torch_paper_figs.py" in files
+    assert _offenders(files, ROOT) == []
