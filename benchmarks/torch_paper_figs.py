@@ -21,8 +21,8 @@ diff row by row.  Those graphs' values fit in the H100's 50 MB L2, so on
 the card only ``--suite card``'s ``g500-24`` says anything about TOCAB: the
 Graph500 scale-24 graph of ``chip_smoke.py`` (``rmat_graph(24, 16,
 seed=1, weights=True)``, 67 MB of fp32 per vertex array), laid out at the
-port's window budget (``choose_block_size``; the tuner, ROADMAP A8, is not
-ported).  On the card each figure adds rows for the fused kernels
+port's window budget (``choose_block_size``: the tuner's cache-model
+replay is too slow to tune that graph).  On the card each figure adds rows for the fused kernels
 (``.../fused``), which the reference's rows (its default ``impl="slab"``)
 do not run.
 
@@ -60,27 +60,13 @@ SPMV_VARIANTS = ("base", "cb", "gc-pull", "gc-push")
 BC_GRAPHS = ("rmat14", "rmat15", "g500-24")
 
 
-def _weighted_grid(side: int):
-    import numpy as np
-
-    from repro_torch.core import Graph, grid_graph
-
-    g = grid_graph(side, side)
-    rng = np.random.default_rng(0)
-    return Graph(g.n, g.rowptr, g.colidx, rng.random(g.m, dtype=np.float32))
-
-
 def _graph(name: str):
     from repro_torch.core import rmat_graph
+    from repro_torch.tune.suite import SUITE
 
-    builders = {
-        "rmat14": lambda: rmat_graph(14, 8, seed=1, weights=True),
-        "rmat15": lambda: rmat_graph(15, 8, seed=2, weights=True),
-        "rmat16": lambda: rmat_graph(16, 8, seed=3, weights=True),
-        "grid256": lambda: _weighted_grid(256),
-        "g500-24": lambda: rmat_graph(24, 16, seed=SEED, weights=True),
-    }
-    return builders[name]()
+    if name == "g500-24":
+        return rmat_graph(24, 16, seed=SEED, weights=True)
+    return SUITE[name]()
 
 
 def search_keys(out_degree, count: int, seed: int) -> list:

@@ -116,6 +116,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms per traversal, levels or iterations, push/pull counts, GTEPS
    (out-edges of the reached vertices over seconds, Graph500's TEPS) and
    ms per push and per pull level (the time between two frontier reads).
+10. Resilience and the tuner (``repro_torch.resilience``,
+   ``repro_torch.tune``).  (a) On phase 4's layouts, right after phase 9:
+   on the card the ladder stays off — an injected ``kernel.tocab_fused``
+   fault makes PageRank ``gc-pull`` / ``gc-push`` ``impl="fused"`` raise
+   ``ChaosError`` with ``allow_fallback=True`` as without it (no fallback
+   recorded, no verdict memoized), and the opted-in run without a fault
+   launches the kernel every iteration, ranks within ``PR_L1_TOL`` of
+   ``base``; balanced SpMV with an injected ``kernel.tocab_spmm`` fault
+   raises under the opt-in too, and launches ``tocab_spmm`` without one;
+   ``impl="reference"`` SpMV; ``"auto"`` with an empty tuning DB (SpMV
+   and BFS: a plan miss, uniform slab, α 15).  Exactly 5 resilience
+   events (the 5 injected faults).
+   (b) ``repro_torch.tune.tune`` on the card over the reference's suite
+   (rmat14–16, grid256; values in L2, so the trials are launch-bound),
+   workloads pagerank, spmv and bfs, budget ``small`` with the bin
+   thresholds ``(4, 32)`` and ``"auto"`` (the first gives these graphs no
+   dense block), in a temporary DB: entries keyed by the card's name,
+   ``fused_pull``, ``fused_push`` and ``tocab_spmm`` launched, a second
+   sweep served from the DB, and ``"auto"`` equal to the chosen candidate
+   given explicitly (sums at ``SUM_RTOL``, PageRank at ``PR_L1_TOL``, BFS
+   depths exactly); one ``tune`` line a graph.  (c) After phase 6: a short
+   TinyLlama decode run (2 × (16 + 8) tokens, bf16) with one
+   ``serve.batch`` fault, injected before a step and raised after a
+   decode step has written the KV cache in place, gives the greedy tokens
+   of the run without it, one retry each; after phase 8: ``score_loop``
+   with a fault gives phase 8's ids and scores.
+   Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
+   phases 4, 6, 8, 9 and 10(b) must end with no ``resilience.*`` counter
+   moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -677,7 +706,8 @@ def phase_main(scale: int, seed: int, log) -> dict:
                 "fused_push": launches_a.get("fused_push", 0),
                 "tocab_spmm": launches_b.get("tocab_spmm", 0)}
     return {"dg": dg, "pull": bp, "push": bq, "rank": rank,
-            "launches": launches, "n": n, "m": m}
+            "launches": launches, "n": n, "m": m, "x": x, "y_base": y_base,
+            "base_rank": base_rank, "base_iters": base_iters}
 
 
 # --------------------------------------------------------------------- #
@@ -1599,8 +1629,9 @@ def phase_lm(seed: int, log) -> dict:
     emit({"phase": "lm_prefill", "requests": Bp, "tokens": Sp,
           "seconds": secs, "tokens_per_s": Bp * Sp / secs,
           "launches": launches_c})
-    del master, params
-    return {"launches": {"flash_decode": launches_b.get("flash_decode", 0),
+    del master
+    return {"params": params,  # phase 10(c) serves with them, then frees
+            "launches": {"flash_decode": launches_b.get("flash_decode", 0),
                          "flash_attention":
                              launches_c.get("flash_attention", 0),
                          "flash_attention_wgmma":
@@ -2106,9 +2137,9 @@ def phase_bert4rec(seed: int, log) -> dict:
     if any(launches.values()):
         raise AssertionError(f"the BERT4Rec path launched {launches}; it "
                              "runs no port kernel")
-    del params, users, cands, by_item, ref
-    torch.cuda.empty_cache()
-    return rec_b
+    del cands, by_item, ref
+    # phase 10(c) scores these users again, with a fault, then frees them
+    return {"params": params, "users": users, "cfg": cfg, "result": res}
 
 
 def serve_breakdown(params: dict, users, cfg, k: int) -> dict:
@@ -2136,6 +2167,477 @@ def serve_breakdown(params: dict, users, cfg, k: int) -> dict:
                                                         top_k=k), reps=5)}
 
 
+# --------------------------------------------------------------------- #
+# phase 10: resilience and the tuner
+# --------------------------------------------------------------------- #
+def counter(name: str, **labels) -> float:
+    from repro_torch.obs.metrics import registry
+
+    return registry.counter(name).value(**labels)
+
+
+def resilience_total() -> float:
+    """Sum of every ``resilience.*`` counter of the port's registry
+    (retries, fallbacks, injected faults, timeouts, exhausted retries)."""
+    from repro_torch.obs.metrics import registry
+
+    return sum(s["value"] for name, m in registry.snapshot().items()
+               if name.startswith("resilience.") for s in m["series"])
+
+
+def check_quiet(after: str, before: float) -> float:
+    """Raise unless no ``resilience.*`` counter moved since ``before``:
+    outside phase 10 nothing may retry or fall back.  Returns the total."""
+    now = resilience_total()
+    emit({"phase": "resilience_quiet", "after": after,
+          "resilience_events": now - before})
+    if now != before:
+        raise AssertionError(f"{after} recorded {now - before} resilience "
+                             "events (retries, fallbacks) where phase 10 "
+                             "injected none")
+    return now
+
+
+def phase_ladder(main: dict, seed: int, log) -> dict:
+    """Phase 10(a): the ladder on phase 4's scale-24 layouts.  On the card
+    it stays off, ``allow_fallback=True`` or not: an injected fault at the
+    fused dispatch or the dense bin's kernel raises, nothing falls back or
+    is memoized, and the opted-in calls without a fault launch their
+    kernels; ``impl="reference"``; ``"auto"`` with an empty tuning DB."""
+    import os
+
+    import torch
+
+    from benchmarks.torch_paper_figs import search_keys
+    from repro_torch.core import bfs, pagerank, spmv
+    from repro_torch.kernels import cuda_build
+    from repro_torch.resilience import ChaosError, chaos, degrade
+    from repro_torch.tune import plan as tune_plan
+
+    t_phase = time.perf_counter()
+    dg, x, y_base = main["dg"], main["x"], main["y_base"]
+    base_rank, base_iters = main["base_rank"], main["base_iters"]
+    total0 = resilience_total()
+    degrade.clear()
+    lines = []
+
+    def fallbacks():
+        from repro_torch.obs.metrics import registry
+
+        return sum(s["value"] for s in registry.snapshot().get(
+            "resilience.fallbacks", {"series": []})["series"])
+
+    def launched(fn):
+        cuda_build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(cuda_build.launches)
+
+    def raises(site, fn) -> bool:
+        chaos.inject(site)
+        try:
+            fn()
+        except ChaosError:
+            return True
+        return False
+
+    def expect(ok: bool, what: str, rec: dict):
+        if not ok:
+            raise AssertionError(f"{what}: {rec}")
+
+    for variant, bg, site, kernel in (
+            ("gc-pull", main["pull"], "tocab_pull", "fused_pull"),
+            ("gc-push", main["push"], "tocab_push", "fused_push")):
+        f0 = fallbacks()
+        rec = {"phase": "ladder", "engine": site, "variant": variant}
+        # a fault raises, with the opt-in or without it
+        for opt in (None, True):
+            rec[f"allow_fallback={opt}_raised"] = raises(
+                "kernel.tocab_fused", lambda: pagerank(
+                    dg, bg, variant=variant, impl="fused", tol=1e-6,
+                    allow_fallback=opt))
+        rec.update(fallbacks=fallbacks() - f0,
+                   verdict=degrade.apply_verdict(bg.fingerprint, site,
+                                                 "fused"))
+        expect(rec["allow_fallback=None_raised"]
+               and rec["allow_fallback=True_raised"]
+               and rec["fallbacks"] == 0 and rec["verdict"] == "fused",
+               f"{variant}: a fault on the card must raise, opt-in or not",
+               rec)
+        # an opted-in run without a fault launches the kernel every
+        # iteration
+        t0 = time.perf_counter()
+        (rank, iters), counts = launched(lambda: pagerank(
+            dg, bg, variant=variant, impl="fused", allow_fallback=True,
+            tol=1e-6))
+        secs = time.perf_counter() - t0
+        l1 = float((rank - base_rank).abs().sum())
+        rec.update(iterations=iters, base_iterations=base_iters,
+                   kernel_launches=counts.get(kernel, 0), l1_vs_base=l1,
+                   pr_l1_tol=PR_L1_TOL, seconds=secs,
+                   ms_per_iteration=1e3 * secs / iters)
+        expect(rec["kernel_launches"] == iters
+               and bool(rank.isfinite().all()) and l1 <= PR_L1_TOL
+               and abs(iters - base_iters) <= 1,
+               f"{variant}: an opted-in run must launch {kernel}", rec)
+        emit(rec)
+        lines.append(rec)
+
+    # the balanced dense bin: the tocab_spmm kernel, no onehot rung
+    bp = main["pull"]
+    f0 = fallbacks()
+    rec = {"phase": "ladder", "engine": "tocab_spmm (balanced dense bin)",
+           "allow_fallback=True_raised": raises(
+               "kernel.tocab_spmm", lambda: spmv(
+                   dg, bp, x, variant="gc-pull", schedule="balanced",
+                   allow_fallback=True, scale=2.5))}
+    t0 = time.perf_counter()
+    y, counts = launched(lambda: spmv(dg, bp, x, variant="gc-pull",
+                                      schedule="balanced",
+                                      allow_fallback=True, scale=2.5))
+    rec.update(fallbacks=fallbacks() - f0,
+               kernel_launches=counts.get("tocab_spmm", 0),
+               seconds=time.perf_counter() - t0,
+               max_abs_err_vs_base=check_close(
+                   "opted-in balanced spmv", y, y_base, "sum")[0])
+    emit(rec)
+    expect(rec["allow_fallback=True_raised"] and rec["fallbacks"] == 0
+           and rec["kernel_launches"] >= 1,
+           "the dense bin must raise on a fault and launch without one",
+           rec)
+
+    # impl="reference": the last rung, run directly
+    ref0 = counter("tocab.engine_traces", engine="tocab_pull_reference",
+                   direction="pull")
+    t0 = time.perf_counter()
+    y, counts = launched(lambda: spmv(dg, bp, x, variant="gc-pull",
+                                      impl="reference", scale=2.5))
+    rec = {"phase": "ladder", "engine": "impl=reference",
+           "reference_calls": counter(
+               "tocab.engine_traces", engine="tocab_pull_reference",
+               direction="pull") - ref0,
+           "launches": counts, "seconds": time.perf_counter() - t0,
+           "max_abs_err_vs_base": check_close("spmv impl=reference", y,
+                                              y_base, "sum")[0]}
+    emit(rec)
+    expect(rec["reference_calls"] == 1 and not any(counts.values()),
+           "impl='reference' runs the reference rung and no kernel", rec)
+
+    # "auto" with an empty tuning DB: a plan miss, uniform slab, α 15
+    old_dir = os.environ.get("REPRO_TUNE_DIR")
+    with tempfile.TemporaryDirectory() as empty:
+        os.environ["REPRO_TUNE_DIR"] = empty
+        tune_plan.clear_cache()
+        try:
+            # the host cost of a first lookup on an empty DB, alone
+            t0 = time.perf_counter()
+            tune_plan.resolve_plan(bp, "spmv")
+            lookup = time.perf_counter() - t0
+            tune_plan.clear_cache()
+            miss0 = counter("tune.plan_lookups", result="miss",
+                            workload="spmv")
+            slab0 = counter("tocab.engine_traces", engine="tocab_pull",
+                            direction="pull")
+            y, counts = launched(lambda: spmv(dg, bp, x, variant="gc-pull",
+                                              schedule="auto", impl="auto",
+                                              scale=2.5))
+            rec = {"phase": "ladder", "engine": "auto, empty tuning DB",
+                   "first_plan_lookup_seconds": lookup,
+                   "spmv_plan_misses": counter(
+                       "tune.plan_lookups", result="miss",
+                       workload="spmv") - miss0,
+                   "spmv_slab_calls": counter(
+                       "tocab.engine_traces", engine="tocab_pull",
+                       direction="pull") - slab0,
+                   "spmv_launches": counts,
+                   "spmv_max_abs_err_vs_base": check_close(
+                       "spmv auto", y, y_base, "sum")[0]}
+            dgu = dataclasses.replace(dg, vals=None)
+            bpu = dataclasses.replace(bp, edge_vals=None)
+            src = search_keys(dg.out_degree, 1, seed)[0]
+            miss0 = counter("tune.plan_lookups", result="miss",
+                            workload="bfs")
+            t0 = time.perf_counter()
+            auto, counts = launched(lambda: bfs(
+                dgu, bpu, src, schedule="auto", impl="auto", alpha=None))
+            secs = time.perf_counter() - t0
+            flat = bfs(dgu, None, src, alpha=15.0)
+            rec.update(bfs_source=src, bfs_plan_misses=counter(
+                "tune.plan_lookups", result="miss", workload="bfs") - miss0,
+                bfs_levels=auto[1:], flat_levels=flat[1:],
+                bfs_launches=counts, bfs_seconds=secs)
+            check_exact("bfs auto vs flat: depth", auto[0], flat[0])
+        finally:
+            if old_dir is None:
+                os.environ.pop("REPRO_TUNE_DIR", None)
+            else:
+                os.environ["REPRO_TUNE_DIR"] = old_dir
+            tune_plan.clear_cache()
+    emit(rec)
+    expect(rec["spmv_plan_misses"] >= 1 and rec["spmv_slab_calls"] == 1
+           and not any(rec["spmv_launches"].values())
+           and rec["bfs_plan_misses"] >= 1
+           and rec["bfs_levels"] == rec["flat_levels"]
+           and not any(rec["bfs_launches"].values()),
+           "'auto' on an untuned graph runs uniform slab at α 15", rec)
+    # every fault injected above was used, and nothing else moved: 5
+    # injections (4 fused, 1 dense bin) and no fallback
+    events = resilience_total() - total0
+    emit({"phase": "ladder_resilience_events", "events": events,
+          "expected": 5, "seconds": time.perf_counter() - t_phase})
+    if events != 5 or chaos._queued:
+        raise AssertionError(f"phase 10(a) recorded {events} resilience "
+                             f"events (5 expected); queued: {chaos._queued}")
+    degrade.clear()
+    return {"lines": lines}
+
+
+def phase_tuner(seed: int, log) -> dict:
+    """Phase 10(b): ``repro_torch.tune.tune`` on the card over the
+    reference's suite (rmat14–16, grid256), workloads pagerank, spmv and
+    bfs, budget ``small``, in a temporary DB; a second sweep served from
+    the DB; ``"auto"`` against the chosen candidate given explicitly."""
+    import os
+
+    import torch
+
+    from repro_torch.configs.graphcage import DEFAULT as CFG
+    from repro_torch.core import bfs, pagerank, spmv
+    from repro_torch.core.partition import DEFAULT_BIN_THRESHOLDS
+    from repro_torch.kernels import cuda_build
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.tune import (Candidate, SearchSpace, analytic,
+                                  device_key, runner, tune)
+    from repro_torch.tune import db as tune_db
+    from repro_torch.tune import plan as tune_plan
+    from repro_torch.tune.space import WORKLOADS
+    from repro_torch.tune.suite import SUITE
+
+    t_phase = time.perf_counter()
+    # the small budget's space at the default bin thresholds (4, 32) gives
+    # these graphs no dense block; the full budget's "auto" thresholds do,
+    # so the balanced trials reach tocab_spmm
+    space = dataclasses.replace(
+        SearchSpace.for_budget("small", CFG),
+        bin_thresholds=(DEFAULT_BIN_THRESHOLDS, "auto"))
+    graphs = {name: build() for name, build in SUITE.items()}
+    old_dir = os.environ.get("REPRO_TUNE_DIR")
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["REPRO_TUNE_DIR"] = tmp.name
+    for mod in (tune_plan, analytic, runner):
+        mod.clear_cache()
+    card = device_key()
+    try:
+        per_graph = {}
+        entries = []
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t_sweep = time.perf_counter()
+        for name, g in graphs.items():
+            # the cache-model replays first, timed alone (the sweep's prune
+            # then reads them from the memo)
+            t0 = time.perf_counter()
+            for wl in WORKLOADS:
+                for c in space.candidates(wl):
+                    analytic.predicted_cost(g, c)
+            replay = time.perf_counter() - t0
+            n_ev = len(obs_trace.events())
+            t0 = time.perf_counter()
+            summary = tune({name: g}, workloads=WORKLOADS, budget="small",
+                           space=space, cfg=CFG, device="cuda")
+            sweep = time.perf_counter() - t0
+            trial_s = sum(e["dur_s"] for e in obs_trace.events()[n_ev:]
+                          if e["name"] == "tune.trial")
+            entries += summary["entries"]
+            per_graph[name] = {
+                "n": g.n, "m": g.m, "replay_seconds": replay,
+                "sweep_seconds": sweep, "timed_trial_seconds": trial_s,
+                "new_trials": summary["new_trials"],
+                "entries": summary["entries"]}
+        sweep_secs = time.perf_counter() - t_sweep
+        launches = {k: cuda_build.launches.get(k, 0)
+                    for k in ("fused_pull", "fused_push", "tocab_spmm")}
+        emit({"phase": "tune_sweep", "budget": "small",
+              "bin_thresholds": [list(DEFAULT_BIN_THRESHOLDS), "auto"],
+              "device_kind": card, "entries": len(entries),
+              "seconds": sweep_secs, "launches": launches})
+        keys = sorted(tune_db.load(tune_db.db_path())["entries"])
+        bad = [k for k in keys if k.split("/")[1] != card]
+        bad += [e["graph"] for e in entries
+                if e["device_kind"] != card or e.get("db_hit")]
+        if len(keys) != len(entries):
+            bad.append(f"{len(keys)} DB entries for {len(entries)} tunings")
+        skipped = {e["key"]: e["skipped"] for e in entries if e["skipped"]}
+        if bad or skipped or not all(launches.values()) \
+                or card != torch.cuda.get_device_name(0).strip().replace(
+                    " ", "-").lower():
+            raise AssertionError(f"tuner sweep: entries {bad} not keyed by "
+                                 f"the card ({card}), skipped {skipped}, "
+                                 f"launches {launches}")
+        again = tune(graphs, workloads=WORKLOADS, budget="small",
+                     space=space, cfg=CFG, device="cuda")
+        emit({"phase": "tune_second_sweep", "new_trials":
+              again["new_trials"], "db_hits": again["db_hits"]})
+        if again["new_trials"] != 0 or again["db_hits"] != len(entries):
+            raise AssertionError(f"second sweep: {again['new_trials']} new "
+                                 f"trials, {again['db_hits']} DB hits")
+
+        def run(g, c, wl, auto):
+            dg, bg = runner.build_for(g, c, "cuda")
+            kw = (dict(schedule="auto", impl="auto") if auto
+                  else dict(schedule=c.schedule, impl=c.impl))
+            variant = runner._pr_variant(c)
+            if wl == "pagerank":
+                return pagerank(dg, bg, variant=variant, tol=1e-6, **kw)
+            if wl == "spmv":
+                gen = torch.Generator().manual_seed(seed)
+                x = torch.rand(g.n, generator=gen).cuda()
+                return spmv(dg, bg, x, variant=variant, **kw)
+            return bfs(dg, bg, 0, alpha=None if auto else c.alpha, **kw)
+
+        for name, info in per_graph.items():
+            g = graphs[name]
+            line = {"phase": "tune", "graph": name, "n": g.n, "m": g.m,
+                    "chosen": {}, "best_us": {}, "trials": {}, "pruned": {},
+                    "auto_vs_chosen": {}}
+            for e in info["entries"]:
+                wl, c = e["workload"], Candidate.from_json(e["chosen"])
+                auto, want = run(g, c, wl, True), run(g, c, wl, False)
+                if wl == "pagerank":
+                    l1 = float((auto[0] - want[0]).abs().sum())
+                    if l1 > PR_L1_TOL or abs(auto[1] - want[1]) > 1:
+                        raise AssertionError(f"{name}/{wl}: auto vs "
+                                             f"{c.key()}: L1 {l1}")
+                    agree = {"l1": l1, "iterations": [auto[1], want[1]]}
+                elif wl == "spmv":
+                    agree = {"max_abs_err": check_close(
+                        f"{name}/spmv auto vs {c.key()}", auto, want,
+                        "sum")[0]}
+                else:
+                    check_exact(f"{name}/bfs auto vs {c.key()}", auto[0],
+                                want[0])
+                    if auto[1:] != want[1:]:
+                        raise AssertionError(f"{name}/bfs levels {auto[1:]}"
+                                             f" vs {want[1:]}")
+                    agree = {"levels": list(auto[1:])}
+                line["chosen"][wl] = c.key()
+                line["best_us"][wl] = e["best_us"]
+                line["trials"][wl] = len(e["trials"])
+                line["pruned"][wl] = e["pruned_analytic"]
+                line["auto_vs_chosen"][wl] = agree
+            line.update(replay_seconds=info["replay_seconds"],
+                        timed_trial_seconds=info["timed_trial_seconds"],
+                        sweep_seconds=info["sweep_seconds"],
+                        note="values fit in L2: launch-bound trials show "
+                             "the tuner works, not cache blocking at scale")
+            emit(line)
+    finally:
+        if old_dir is None:
+            os.environ.pop("REPRO_TUNE_DIR", None)
+        else:
+            os.environ["REPRO_TUNE_DIR"] = old_dir
+        for mod in (tune_plan, analytic, runner):
+            mod.clear_cache()
+        tmp.cleanup()
+    emit({"phase": "tuner_seconds", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches}
+
+
+def phase_serve_retry(lm: dict, seed: int, log):
+    """Phase 10(c), LM: a short decode run on TinyLlama-1.1B (bf16, the
+    serving loop) with one ``serve.batch`` fault — injected before a step,
+    and raised after a decode step has written its K/V into the cache in
+    place — gives the greedy tokens of the same run without it, each with
+    one retry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import transformer as tfm
+    from repro_torch.resilience import ChaosError, chaos
+
+    params, cfg = lm.pop("params"), lm["cfg"]
+    rng = np.random.default_rng(seed + 10)
+    P, new = 16, 8
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, P))).cuda()
+    want = serve_loop(params, prompts, cfg, new)
+
+    def retried(fault) -> dict:
+        r0 = counter("resilience.retries", site="serve.batch",
+                     error="ChaosError")
+        with fault():
+            res = serve_loop(params, prompts, cfg, new)
+        return {"tokens_equal": bool(torch.equal(res.tokens, want.tokens)),
+                "retries": counter("resilience.retries", site="serve.batch",
+                                   error="ChaosError") - r0,
+                "seconds": res.total_seconds}
+
+    class injected:
+        def __enter__(self):
+            chaos.inject("serve.batch")
+
+        def __exit__(self, *exc):
+            return False
+
+    class after_cache_write:
+        """Raise once after the real step at position P + 2 has run."""
+
+        def __enter__(self):
+            real, state = tfm.serve_decode, {"armed": True}
+
+            def step(params, tok, pos, cache, cfg):
+                out = real(params, tok, pos, cache, cfg)
+                if pos == P + 2 and state.pop("armed", False):
+                    raise ChaosError("serve.batch")
+                return out
+
+            self.real, tfm.serve_decode = real, step
+
+        def __exit__(self, *exc):
+            tfm.serve_decode = self.real
+            return False
+
+    rec = {"phase": "serve_retry", "arch": LM_ARCH, "requests": 2,
+           "prompt_len": P, "max_new": new,
+           "seconds_without_fault": want.total_seconds,
+           "fault_before_step": retried(injected),
+           "fault_after_cache_write": retried(after_cache_write)}
+    emit(rec)
+    if not all(r["tokens_equal"] and r["retries"] == 1
+               for r in (rec["fault_before_step"],
+                         rec["fault_after_cache_write"])):
+        raise AssertionError(f"retried serve step: {rec}")
+    del params
+
+
+def phase_score_retry(b4: dict):
+    """Phase 10(c), BERT4Rec: ``score_loop`` at 512 users with one
+    ``serve.batch`` fault gives phase 8's ids and scores."""
+    import torch
+
+    from repro_torch.launch.serve import score_loop
+    from repro_torch.resilience import chaos
+
+    r0 = counter("resilience.retries", site="serve.batch",
+                 error="ChaosError")
+    chaos.inject("serve.batch")
+    t0 = time.perf_counter()
+    res = score_loop(b4["params"], b4["users"], b4["cfg"], top_k=10, reps=1)
+    secs = time.perf_counter() - t0
+    want = b4["result"]
+    rec = {"phase": "score_retry", "users": b4["users"].shape[0],
+           "seconds": secs, "ms_per_batch_without_fault":
+               1e3 * want.seconds_per_batch,
+           "retries": counter("resilience.retries", site="serve.batch",
+                              error="ChaosError") - r0,
+           "ids_equal": bool(torch.equal(res.ids, want.ids)),
+           "scores_equal": bool(torch.equal(res.scores, want.scores))}
+    emit(rec)
+    if not (rec["retries"] == 1 and rec["ids_equal"]
+            and rec["scores_equal"]):
+        raise AssertionError(f"retried score step: {rec}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -2155,6 +2657,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 3
+    from repro_torch.resilience import chaos
+
+    if chaos.enabled():
+        print("chip_smoke: rate-based fault injection is armed "
+              "(REPRO_CHAOS); the script injects its own faults only",
+              file=sys.stderr)
+        return 4
 
     def log(msg: str):
         if args.log is not None:
@@ -2194,18 +2703,33 @@ def main(argv=None) -> int:
     for nm, text in logs.items():
         log(f"--- nvcc {nm} ---\n{text}")
 
+    quiet = resilience_total()
     phase_kernels(SEED, log)
     phase_spmm_kernel(SEED, log)
     phase_attention_kernels(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
+    quiet = check_quiet("phase 4", quiet)
     records = phase_timing(main_state, log, floors, previous)
     phase_traversal(main_state, SEED, log)
+    quiet = check_quiet("phase 9", quiet)
+    phase_ladder(main_state, SEED, log)
     del main_state
     torch.cuda.empty_cache()
+    quiet = resilience_total()
+    phase_tuner(SEED, log)
+    quiet = check_quiet("phase 10(b)", quiet)
     lm = phase_lm(SEED, log)
+    quiet = check_quiet("phase 6", quiet)
+    phase_serve_retry(lm, SEED, log)
+    torch.cuda.empty_cache()
+    quiet = resilience_total()
     records += attention_timing(lm, SEED, log)
     records += phase_embedding_bag(SEED, log, eb_probes, eb_previous)
-    phase_bert4rec(SEED, log)
+    b4 = phase_bert4rec(SEED, log)
+    quiet = check_quiet("phase 8", quiet)
+    phase_score_retry(b4)
+    del b4
+    torch.cuda.empty_cache()
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,9 @@ bin         edges/row                  strategy (pull)
 ``dense``   ≥ ``thresholds[1]``        the ``tocab_spmm`` CUDA kernel on
                                        the card (``dense_impl="cuda"``), or
                                        a sum of the real slots into the
-                                       bin's slab (``"onehot"``)
+                                       bin's slab (``"onehot"``; the
+                                       kernel's rung under an explicit
+                                       ``allow_fallback=True``)
 ==========  =========================  =====================================
 
 The classification is carried on
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs.metrics import registry as _obs
+from repro_torch.resilience import chaos, degrade
 
 from .partition import REDUCE_IDENTITY
 
@@ -365,6 +368,7 @@ def bin_pull_partials(
     reduce: str = "sum",
     combine: Optional[Callable] = None,
     dense_impl: Optional[str] = None,
+    allow_fallback: bool = False,
 ):
     """Phase-2 partials of one sparsity bin (its blocks only, in schedule
     order), at the bin's static compact-row budget: shape
@@ -373,21 +377,37 @@ def bin_pull_partials(
     or ``UNWEIGHTED``) ``dense_impl='cuda'``, the default for tensors on
     the card, launches the ``tocab_spmm`` kernel and raises for tensors
     elsewhere; ``'onehot'``, the default elsewhere, sums with torch ops.
-    Neither falls back to the other."""
+    ``allow_fallback=True`` (only an engine call that carried it passes
+    it) arms the cuda → onehot rung for values on the CPU (where the
+    kernel's plain version runs): an injected ``kernel.tocab_spmm`` fault
+    hands the bin to the one-hot strategy.  On the card, and without the
+    opt-in, the failure raises."""
     sched = require_schedule(bg)
     ids = sched.blocks_in(bin_id)
     if not ids:
         return None
     rb = _compact_budget(sched, bin_id, bg.local_budget)
     if bin_id == BIN_DENSE and _dense_eligible(reduce, combine):
-        if _resolve_dense_impl(dense_impl, values) == "cuda":
+
+        def _onehot():
+            cidx, mask, msgs = _pull_msgs(bg, ids, values, reduce, combine)
+            return _reduce_msgs_onehot(rb, cidx, mask, msgs)
+
+        if _resolve_dense_impl(dense_impl, values) != "cuda":
+            return _onehot()
+
+        def _cuda():
+            chaos.maybe_raise("kernel.tocab_spmm")
             from repro_torch.kernels.tocab_spmm.ops import tocab_spmm_partials
 
             return tocab_spmm_partials(
                 bg, values, block_ids=ids, local_budget=rb,
                 unweighted=combine is UNWEIGHTED)
-        cidx, mask, msgs = _pull_msgs(bg, ids, values, reduce, combine)
-        return _reduce_msgs_onehot(rb, cidx, mask, msgs)
+
+        if not degrade.fallback_allowed(allow_fallback, values.device):
+            return _cuda()
+        return degrade.dispatch("tocab_spmm", bg.fingerprint,
+                                [("cuda", _cuda), ("onehot", _onehot)])
     cidx, mask, msgs = _pull_msgs(bg, ids, values, reduce, combine)
     if bin_id == BIN_SPARSE:
         return _reduce_msgs_sparse(rb, cidx, mask, msgs, reduce)
@@ -400,11 +420,12 @@ def balanced_pull_partials(
     reduce: str = "sum",
     combine: Optional[Callable] = None,
     dense_impl: Optional[str] = None,
+    allow_fallback: bool = False,
 ):
     """Sparsity-aware phase 2: every bin runs its matched strategy; results
     land in the same ``(num_blocks, local_budget, …)`` slab as the uniform
     path, so phase 3 (:func:`repro_torch.core.tocab.reduce_partials`) is
-    unchanged."""
+    unchanged.  ``allow_fallback`` as in :func:`bin_pull_partials`."""
     from .tocab import _check_reduce, _require_direction
 
     _require_direction(bg, "pull")
@@ -415,7 +436,7 @@ def balanced_pull_partials(
                           device=values.device)
     for bin_id in range(len(BIN_NAMES)):
         sub = bin_pull_partials(bg, bin_id, values, reduce, combine,
-                                dense_impl)
+                                dense_impl, allow_fallback)
         if sub is None:
             continue
         # bin partials are budget-wide; rows beyond stay at the identity
@@ -430,14 +451,16 @@ def balanced_pull(
     reduce: str = "sum",
     combine: Optional[Callable] = None,
     dense_impl: Optional[str] = None,
+    allow_fallback: bool = False,
 ):
     """Sparsity-aware TOCAB pull — equal to ``tocab_pull`` up to float
-    reassociation (each bin reduces the same edge sets)."""
+    reassociation (each bin reduces the same edge sets).
+    ``allow_fallback`` as in :func:`bin_pull_partials`."""
     from .tocab import reduce_partials
 
     _record_bins(bg, "pull", "balanced_pull")
     partials = balanced_pull_partials(bg, values, reduce, combine,
-                                      dense_impl)
+                                      dense_impl, allow_fallback)
     return reduce_partials(bg, partials, reduce)
 
 

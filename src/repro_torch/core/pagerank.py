@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.resilience import degrade
 from .balance import UNWEIGHTED as _unweighted
 from .graph import DeviceGraph
 from .partition import BlockedGraph
@@ -102,19 +103,28 @@ def pagerank(
 
     Returns ``(rank, iterations)``, with ``iterations`` a Python int.  The
     ranks live on ``dg``'s device.  ``schedule`` / ``impl`` /
-    ``allow_fallback`` as in :func:`repro_torch.core.tocab.tocab_pull`."""
+    ``allow_fallback`` as in :func:`repro_torch.core.tocab.tocab_pull`:
+    ``"auto"`` is resolved here, once, from the tuning DB (workload
+    ``pagerank``), and with ``allow_fallback=True`` on the CPU the memoized
+    verdict of a past fallback on this graph starts the loop at the
+    working rung."""
     if variant not in PR_VARIANTS:
         raise ValueError(f"unknown PageRank variant {variant!r}")
     if variant in ("gc-pull", "gc-push", "cb") and bg is None:
         raise ValueError(f"variant {variant!r} needs a BlockedGraph")
-    tocab._dispatch(schedule, impl, allow_fallback)
+    schedule, impl = tocab._resolve(bg if bg is not None else dg, schedule,
+                                    impl, "pagerank")
+    allow = degrade.fallback_allowed(allow_fallback, dg.device)
+    if allow and variant in ("gc-pull", "gc-push"):
+        site = "tocab_pull" if variant == "gc-pull" else "tocab_push"
+        impl = degrade.apply_verdict(bg.fingerprint, site, impl)
     n = dg.n
     rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dg.device)
     delta, it = math.inf, 0
     while delta > tol and it < max_iters:
         new_rank = pagerank_iteration(
             variant, dg, bg, rank, dg.out_degree, damping, handle_dangling,
-            schedule, impl, allow_fallback)
+            schedule, impl, allow)
         delta = float((new_rank - rank).abs().sum())
         rank, it = new_rank, it + 1
     return rank, it

@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.resilience import degrade
 from .graph import DeviceGraph
 from .partition import BlockedGraph
 from . import tocab
@@ -36,8 +37,15 @@ def spmv(
     the card).  ``scale`` fuses ``y*scale`` into the engine epilogue (gc
     variants) or scales afterwards (the others).  ``schedule`` /
     ``dense_impl`` / ``allow_fallback`` as in
-    :func:`repro_torch.core.tocab.tocab_pull`."""
-    tocab._dispatch(schedule, impl, allow_fallback)
+    :func:`repro_torch.core.tocab.tocab_pull`; ``"auto"`` resolves from the
+    tuning DB (workload ``spmv``)."""
+    schedule, impl = tocab._resolve(bg if bg is not None else dg, schedule,
+                                    impl, "spmv")
+    allow_fallback = degrade.fallback_allowed(allow_fallback, x.device)
+    if allow_fallback and bg is not None and variant in ("gc-pull",
+                                                          "gc-push"):
+        site = "tocab_pull" if variant == "gc-pull" else "tocab_push"
+        impl = degrade.apply_verdict(bg.fingerprint, site, impl)
     epilogue = None if scale is None else (scale, 0.0)
     if variant == "base":
         y = tocab.baseline_pull(dg, x, reduce="sum")

@@ -30,11 +30,14 @@ import torch
 
 from repro_torch.obs.metrics import registry as _obs
 from repro_torch.obs.trace import synchronize
+from repro_torch.resilience import chaos, degrade
 from .graph import DeviceGraph
 from .partition import REDUCE_IDENTITY, BlockedGraph
 
 __all__ = [
     "segment_reduce",
+    "resolve_schedule",
+    "resolve_impl",
     "baseline_pull",
     "baseline_push",
     "cb_pull",
@@ -243,41 +246,102 @@ def reduce_partials(bg: BlockedGraph, partials: torch.Tensor,
     return out[:-1]
 
 
-def _reconcile_fused(schedule: str, impl: str):
+def resolve_schedule(bg, schedule: str, workload: str = "spmv") -> str:
+    """``"auto"`` → the tuned plan's schedule for this graph (the
+    :mod:`repro_torch.tune` DB, keyed by the layout's build-time
+    fingerprint and its device), anything else passes through."""
+    if schedule != "auto":
+        return schedule
+    from repro_torch.tune.plan import resolve_schedule as _resolve
+
+    return _resolve(bg, workload=workload)
+
+
+def resolve_impl(bg, impl: str, workload: str = "spmv") -> str:
+    """``"auto"`` → the tuned plan's implementation (``"slab"`` or
+    ``"fused"``) for this graph, anything else passes through."""
+    if impl != "auto":
+        return impl
+    from repro_torch.tune.plan import resolve_impl as _resolve
+
+    return _resolve(bg, workload=workload)
+
+
+def _reconcile_fused(schedule: str, impl: str,
+                     schedule_arg: str, impl_arg: str):
     """``fused`` × ``balanced`` is not a valid pairing — the fused pipeline
     runs every block through one kernel (its bin awareness is a visit
-    *order*, not per-bin strategies).  In the reference a side the tuner
-    picked (``"auto"``) yields; the port has no tuner yet (ROADMAP A8), so
-    the conflict is always explicit and an error."""
+    *order*, not per-bin strategies).  Whichever side the tuner picked
+    (``"auto"``) yields; an explicit conflict is an error."""
     if impl == "fused" and schedule == "balanced":
+        if impl_arg == "auto":
+            return schedule, "slab"
+        if schedule_arg == "auto":
+            return "uniform", impl
         raise ValueError(
             "impl='fused' is incompatible with schedule='balanced' — use "
-            "schedule='uniform' with the fused pipeline")
+            "schedule='uniform' (or 'auto') with the fused pipeline")
+    return schedule, impl
 
 
-def _dispatch(schedule: str, impl: str, allow_fallback) -> str:
-    """Check the engine options the port supports (``schedule`` uniform or
-    balanced); returns the implementation to run (``"slab"`` or
-    ``"fused"``).  The options that later slices bring raise instead of
-    quietly running something else."""
-    if schedule == "auto" or impl == "auto":
-        raise NotImplementedError(
-            "schedule='auto' / impl='auto' resolve through the tuner, which "
-            "the port does not have yet (ROADMAP A8)")
-    if allow_fallback:
-        raise NotImplementedError(
-            "allow_fallback=True arms the degradation ladder, which the port "
-            "does not have yet (ROADMAP A6)")
-    _reconcile_fused(schedule, impl)
-    if schedule not in ("uniform", "balanced"):
-        raise ValueError(f"unknown schedule {schedule!r}")
-    if impl == "reference":
-        raise NotImplementedError(
-            "impl='reference' is a rung of the degradation ladder, which the "
-            "port does not have yet (ROADMAP A6)")
-    if impl not in ("slab", "fused"):
-        raise ValueError(f"unknown impl {impl!r}")
-    return impl
+def _resolve(obj, schedule: str, impl: str, workload: str):
+    """Concrete ``(schedule, impl)`` for one engine call: ``"auto"``
+    resolved from the tuning DB, fused × balanced reconciled, both
+    checked."""
+    rs = resolve_schedule(obj, schedule, workload=workload)
+    ri = resolve_impl(obj, impl, workload=workload)
+    rs, ri = _reconcile_fused(rs, ri, schedule, impl)
+    if rs not in ("uniform", "balanced"):
+        raise ValueError(f"unknown schedule {rs!r}")
+    if ri not in degrade.LADDER:
+        raise ValueError(f"unknown impl {ri!r}; expected one of "
+                         f"{degrade.LADDER}")
+    return rs, ri
+
+
+def _guarded(site: str, thunk):
+    """``thunk`` behind the chaos site ``site``, checked before it runs."""
+
+    def run():
+        chaos.maybe_raise(site)
+        return thunk()
+
+    return run
+
+
+def _ladder_dispatch(engine: str, bg, ri: str, allow: bool, fused_thunk,
+                     slab_thunk, reference_thunk):
+    """Degradation-ladder dispatch for one engine call (see
+    :mod:`repro_torch.resilience.degrade`).  ``engine`` is the dispatch-site
+    label (``tocab_pull``/``tocab_push``/``tocab_edge_reduce``);
+    fingerprint-keyed verdicts make the fallback a once-per-(graph,
+    engine) decision, not a per-iteration one.  Without ``allow`` the
+    requested rung runs alone and its failure propagates.  The fused rung
+    checks the chaos site ``kernel.tocab_fused``; the slab rung checks
+    ``kernel.tocab_slab`` only when the ladder is armed."""
+    if ri == "reference":
+        return reference_thunk()
+    rungs = [("slab", _guarded("kernel.tocab_slab", slab_thunk)
+              if allow else slab_thunk), ("reference", reference_thunk)]
+    if ri == "fused":
+        rungs.insert(0, ("fused", _guarded("kernel.tocab_fused",
+                                           fused_thunk)))
+    if not allow:
+        return rungs[0][1]()
+    return degrade.dispatch(engine, bg.fingerprint, rungs,
+                            allow_fallback=True)
+
+
+def _prepare(site: str, bg, schedule: str, impl: str, allow_fallback,
+             device):
+    """(schedule, impl, allow) for one ``tocab_*`` call on ``device``:
+    resolved, and started at a memoized verdict when the ladder is armed
+    (:func:`repro_torch.resilience.degrade.fallback_allowed`: CPU only)."""
+    rs, ri = _resolve(bg, schedule, impl, "spmv")
+    allow = degrade.fallback_allowed(allow_fallback, device)
+    if allow:
+        ri = degrade.apply_verdict(bg.fingerprint, site, ri)
+    return rs, ri, allow
 
 
 def _slab_epilogue(out, reduce: str, epilogue):
@@ -314,23 +378,42 @@ def tocab_pull(
     the dense bin's (``'cuda'``: the ``tocab_spmm`` kernel, the default for
     tensors on the card; ``'onehot'``: torch ops, the default on the CPU).
     ``epilogue=(mul, add)`` applies ``out*mul + add`` (sum semiring
-    only)."""
-    ri = _dispatch(schedule, impl, allow_fallback)
-    if ri == "fused":
+    only).  ``schedule='auto'`` / ``impl='auto'`` resolve from the
+    :mod:`repro_torch.tune` DB (uniform slab for a graph never tuned).
+    ``impl='reference'`` runs the uniform slab dataflow, the ladder's last
+    rung.
+
+    ``allow_fallback=True`` arms the fused → slab → reference ladder
+    (:mod:`repro_torch.resilience.degrade`) and the dense bin's cuda →
+    onehot rung for values on the CPU; on the card, and with anything but
+    ``True`` (``None``, the default, included), it stays off and a failure
+    raises."""
+    rs, ri, allow = _prepare("tocab_pull", bg, schedule, impl,
+                             allow_fallback, values.device)
+
+    def _fused():
         from repro_torch.kernels.tocab_fused import fused_pull
 
         _record_engine("tocab_pull_fused", "pull", bg.num_blocks, bg.m)
         return fused_pull(bg, values, reduce, combine, epilogue)
-    if schedule == "balanced":
+
+    def _uniform(engine: str):
+        _record_engine(engine, "pull", bg.num_blocks, bg.m)
+        partials = tocab_pull_partials(bg, values, reduce, combine)
+        return _slab_epilogue(reduce_partials(bg, partials, reduce),
+                              reduce, epilogue)
+
+    def _slab():
+        if rs != "balanced":
+            return _uniform("tocab_pull")
         from .balance import balanced_pull
 
-        out = balanced_pull(bg, values, reduce, combine,
-                            dense_impl=dense_impl)
-    else:
-        _record_engine("tocab_pull", "pull", bg.num_blocks, bg.m)
-        partials = tocab_pull_partials(bg, values, reduce, combine)
-        out = reduce_partials(bg, partials, reduce)
-    return _slab_epilogue(out, reduce, epilogue)
+        return _slab_epilogue(
+            balanced_pull(bg, values, reduce, combine, dense_impl=dense_impl,
+                          allow_fallback=allow), reduce, epilogue)
+
+    return _ladder_dispatch("tocab_pull", bg, ri, allow, _fused, _slab,
+                            lambda: _uniform("tocab_pull_reference"))
 
 
 def _push_messages(values, id_map, compact_idx, edge_vals, edge_mask,
@@ -387,20 +470,30 @@ def tocab_push(
     fanned out per edge; accumulation is confined to the block's
     destination window.  ``schedule``, ``impl``, ``epilogue`` and
     ``allow_fallback`` as in :func:`tocab_pull`."""
-    ri = _dispatch(schedule, impl, allow_fallback)
-    if ri == "fused":
+    rs, ri, allow = _prepare("tocab_push", bg, schedule, impl,
+                             allow_fallback, values.device)
+
+    def _fused():
         from repro_torch.kernels.tocab_fused import fused_push
 
         _record_engine("tocab_push_fused", "push", bg.num_blocks, bg.m)
         return fused_push(bg, values, reduce, combine, epilogue)
-    if schedule == "balanced":
+
+    def _uniform(engine: str):
+        _record_engine(engine, "push", bg.num_blocks, bg.m)
+        return _slab_epilogue(_push_windows(bg, values, reduce, combine),
+                              reduce, epilogue)
+
+    def _slab():
+        if rs != "balanced":
+            return _uniform("tocab_push")
         from .balance import balanced_push
 
-        out = balanced_push(bg, values, reduce, combine)
-    else:
-        _record_engine("tocab_push", "push", bg.num_blocks, bg.m)
-        out = _push_windows(bg, values, reduce, combine)
-    return _slab_epilogue(out, reduce, epilogue)
+        return _slab_epilogue(balanced_push(bg, values, reduce, combine),
+                              reduce, epilogue)
+
+    return _ladder_dispatch("tocab_push", bg, ri, allow, _fused, _slab,
+                            lambda: _uniform("tocab_push_reference"))
 
 
 # ====================================================================== #
@@ -439,22 +532,36 @@ def tocab_edge_reduce(
 ):
     """Reduce *edge* values to the compacted side (dst for pull layout)
     through the partial-slab + reduction machinery — the GNN primitive
-    (edge messages → node aggregate) in TOCAB form.  ``impl`` /
-    ``epilogue`` as in :func:`tocab_pull`."""
-    ri = _dispatch(schedule, impl, allow_fallback)
-    if ri == "fused":
+    (edge messages → node aggregate) in TOCAB form.  ``schedule``,
+    ``impl``, ``epilogue`` and ``allow_fallback`` as in
+    :func:`tocab_pull`."""
+    rs, ri, allow = _prepare("tocab_edge_reduce", bg, schedule, impl,
+                             allow_fallback, flat_edge_vals.device)
+
+    def _fused():
         from repro_torch.kernels.tocab_fused import fused_edge_reduce
 
         _record_engine("tocab_edge_reduce_fused", bg.direction,
                        bg.num_blocks, bg.m)
         return fused_edge_reduce(bg, flat_edge_vals, reduce, epilogue)
-    if schedule == "balanced":
-        from .balance import balanced_edge_reduce
 
-        out = balanced_edge_reduce(bg, flat_edge_vals, reduce)
-    else:
-        out = _edge_reduce_uniform(bg, flat_edge_vals, reduce)
-    return _slab_epilogue(out, reduce, epilogue)
+    def _slab():
+        if rs == "balanced":
+            from .balance import balanced_edge_reduce
+
+            out = balanced_edge_reduce(bg, flat_edge_vals, reduce)
+        else:
+            out = _edge_reduce_uniform(bg, flat_edge_vals, reduce)
+        return _slab_epilogue(out, reduce, epilogue)
+
+    def _reference():
+        _record_engine("tocab_edge_reduce_reference", bg.direction,
+                       bg.num_blocks, bg.m)
+        return _slab_epilogue(_edge_reduce_uniform(bg, flat_edge_vals,
+                                                   reduce), reduce, epilogue)
+
+    return _ladder_dispatch("tocab_edge_reduce", bg, ri, allow, _fused,
+                            _slab, _reference)
 
 
 def tocab_gather_src(bg: BlockedGraph, values: torch.Tensor) -> torch.Tensor:

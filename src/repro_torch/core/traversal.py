@@ -47,13 +47,23 @@ INF_DEPTH = torch.iinfo(torch.int32).max // 2
 DEFAULT_ALPHA = 15.0
 
 
-def _resolve_traversal(schedule: str, alpha: Optional[float],
-                       impl: str) -> float:
-    """Check the engine options as ``tocab_pull`` does (``"auto"`` needs
-    the tuner, ROADMAP A8; fused × balanced is an error) and return α:
-    ``None`` means the paper's 15."""
-    tocab._dispatch(schedule, impl, None)
-    return float(DEFAULT_ALPHA if alpha is None else alpha)
+def _resolve_traversal(obj, schedule: str, alpha: Optional[float],
+                       impl: str):
+    """Concrete ``(schedule, alpha, impl)`` for one traversal, resolved
+    once before the loop: ``"auto"`` from the tuning DB (workload ``bfs``;
+    uniform slab for a graph never tuned), fused × balanced reconciled as
+    in ``tocab_pull``.  ``alpha=None`` is the tuned α under
+    ``schedule="auto"`` and the paper's 15 otherwise."""
+    want_auto = schedule == "auto"
+    schedule, impl = tocab._resolve(obj, schedule, impl, "bfs")
+    if alpha is None:
+        if want_auto:
+            from repro_torch.tune.plan import resolve_alpha
+
+            alpha = resolve_alpha(obj, workload="bfs")
+        else:
+            alpha = DEFAULT_ALPHA
+    return schedule, float(alpha), impl
 
 
 def _source_index(source, n: int) -> int:
@@ -145,11 +155,15 @@ def bfs(
     """Direction-optimizing BFS.  ``dg``/``bg_pull`` are over edges
     oriented (src→dst) = (in-neighbour → vertex), i.e. the pull layout;
     ``bg_pull=None`` runs the pull levels flat too.  ``source`` is an int
-    or a 0-d tensor.
+    or a 0-d tensor.  ``schedule`` / ``impl`` pick the pull levels'
+    engine as in ``tocab_pull``; ``"auto"`` consults the tuning DB, and
+    ``alpha=None`` takes the tuned Beamer α under ``schedule="auto"`` (the
+    paper's 15 otherwise).
 
     Returns (depth int32[n], levels, push_iters, pull_iters), the counts as
     Python ints."""
-    alpha = _resolve_traversal(schedule, alpha, impl)
+    schedule, alpha, impl = _resolve_traversal(
+        bg_pull if bg_pull is not None else dg, schedule, alpha, impl)
     state = _Frontier(dg, _source_index(source, dg.n), dg.m / alpha)
     max_iters = max_iters or dg.n
     while state.level < max_iters:
@@ -176,7 +190,8 @@ def bc(
     dependencies level by level.  Arguments as in :func:`bfs`.
 
     Returns (bc_scores f32[n], depth, sigma)."""
-    alpha = _resolve_traversal(schedule, alpha, impl)
+    schedule, alpha, impl = _resolve_traversal(
+        bg_pull if bg_pull is not None else dg, schedule, alpha, impl)
     src = _source_index(source, dg.n)
     n = dg.n
     state = _Frontier(dg, src, dg.m / alpha)
@@ -236,7 +251,9 @@ def sssp(
     layout without edge values), which the fused kernels form on the card.
 
     Returns (dist f32[n], iters)."""
-    _resolve_traversal(schedule, DEFAULT_ALPHA, impl)
+    schedule, _, impl = _resolve_traversal(
+        bg_pull if bg_pull is not None else dg, schedule, DEFAULT_ALPHA,
+        impl)
     src = _source_index(source, dg.n)
     dist = torch.full((dg.n,), float("inf"), dtype=torch.float32,
                       device=dg.device)
@@ -274,7 +291,9 @@ def connected_components(
     for *weak* connectivity); its pull is flat.  Labels are fp32 while they
     propagate, as in the reference: exact for up to 2²⁴ vertices.  Returns
     (labels int32[n], iters)."""
-    _resolve_traversal(schedule, DEFAULT_ALPHA, impl)
+    schedule, _, impl = _resolve_traversal(
+        bg_pull if bg_pull is not None else dg, schedule, DEFAULT_ALPHA,
+        impl)
     labels = torch.arange(dg.n, dtype=torch.float32, device=dg.device)
     max_iters = max_iters or dg.n
     changed, iters = True, 0

@@ -25,6 +25,7 @@ from repro_torch.core.balance import ADD_EDGE, UNWEIGHTED
 from repro_torch.core.partition import BlockedGraph
 from repro_torch.core.tocab import _require_direction
 from repro_torch.obs.metrics import registry as _obs
+from repro_torch.resilience import chaos as _chaos
 
 from .kernel import fused_pull_cuda, fused_push_cuda
 from .ref import (check_block_order, fused_edge_reduce_ref, fused_pull_ref,
@@ -114,6 +115,7 @@ def fused_pull(
     affine epilogue ``out*mul + add``.  ``block_order`` is validated and
     changes nothing: the kernel's CTAs run in no order, and the plain
     version reduces the whole layout at once."""
+    _chaos.maybe_raise("kernel.tocab_fused.op")  # opt-in fault-injection site
     _require_direction(bg, "pull")
     _check_epilogue(reduce, epilogue)
     check_block_order(bg, block_order)
@@ -139,6 +141,7 @@ def fused_push(
     windows, so ``block_order`` (for example the balance module's bin-major
     ``fused_block_order``) cannot change the result; a given order is
     validated and otherwise unused."""
+    _chaos.maybe_raise("kernel.tocab_fused.op")  # opt-in fault-injection site
     _require_direction(bg, "push")
     _check_epilogue(reduce, epilogue)
     check_block_order(bg, block_order)
@@ -162,6 +165,7 @@ def fused_edge_reduce(
     reference has no TPU kernel for it (messages come from the blocked
     edge-value slab, not a value window), so the plain version is the
     implementation on every device; ``backend`` is accepted for symmetry."""
+    _chaos.maybe_raise("kernel.tocab_fused.op")  # opt-in fault-injection site
     _check_epilogue(reduce, epilogue)
     _backend(flat_edge_vals, backend)
     _record_fused(bg, "fused_edge_reduce", tuple(flat_edge_vals.shape[1:]),

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.partition import BlockedGraph
 from repro_torch.core.tocab import _require_direction, reduce_partials
+from repro_torch.resilience import chaos as _chaos
 
 from .kernel import tocab_spmm_cuda
 from .ref import tocab_spmm_ref
@@ -64,6 +65,7 @@ def tocab_spmm_partials(
     balanced scheduler passes the dense bin's compact budget.  ``mode`` is
     checked and changes nothing.  ``use_ref=True`` runs the plain version on
     any device."""
+    _chaos.maybe_raise("kernel.tocab_spmm.op")  # opt-in fault-injection site
     _require_direction(bg, "pull")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")

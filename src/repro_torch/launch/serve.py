@@ -23,8 +23,8 @@ config (random weights from a seed: the repo holds no checkpoint).
   ``serve.score_seconds`` histogram and ``serve.users_per_s`` gauge.  No
   kernel of the port runs on it: scores, top-k and gathers are torch ops.
 
-Not ported: the reference's retry / chaos wrapper around each batch step
-(resilience, ROADMAP A6).
+Every batch step of both loops runs behind the reference's retry policy
+(:data:`BATCH_POLICY`, chaos site ``serve.batch``): :func:`_resilient_step`.
 """
 from __future__ import annotations
 
@@ -39,9 +39,29 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import registry as _obs
+from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience.retry import Policy
 
 __all__ = ["ServeResult", "serve_loop", "serve_lm", "ScoreResult",
-           "score_loop", "serve_recsys", "main"]
+           "score_loop", "serve_recsys", "main", "BATCH_POLICY"]
+
+#: per-batch retry.  A step is idempotent: ``serve_decode`` writes the
+#: step's K/V in place at slot ``pos % S_max`` of every layer, each layer
+#: before it reads the cache, from the same token, position and earlier
+#: slots, so a re-run (after a fault anywhere in the step) writes the same
+#: values and returns the same logits; scoring writes nothing.
+BATCH_POLICY = Policy(max_attempts=3, base_delay=0.02)
+
+
+def _resilient_step(fn, *args):
+    """One serving batch step behind the retry policy; ``serve.batch`` is a
+    chaos site, so fault-injection runs exercise the retry path."""
+
+    def _once():
+        _chaos.maybe_raise("serve.batch")
+        return fn(*args)
+
+    return BATCH_POLICY.call(_once, site="serve.batch")
 
 
 @dataclasses.dataclass
@@ -86,8 +106,8 @@ def serve_loop(params: dict, prompts: torch.Tensor, cfg, max_new: int,
     t0 = time.perf_counter()
     with obs_trace.span("serve.prefill", requests=B, prompt_len=P) as sp:
         for t in range(P - 1):
-            _, cache = tfm.serve_decode(params, prompts[:, t:t + 1], t,
-                                        cache, cfg)
+            _, cache = _resilient_step(tfm.serve_decode, params,
+                                       prompts[:, t:t + 1], t, cache, cfg)
         sp.block(cache.k)
     t_prefill = time.perf_counter() - t0
     _obs.histogram("serve.prefill_seconds",
@@ -100,7 +120,8 @@ def serve_loop(params: dict, prompts: torch.Tensor, cfg, max_new: int,
     with obs_trace.span("serve.decode", requests=B, max_new=max_new) as sp:
         for t in range(P - 1, P - 1 + max_new):
             td = time.perf_counter()
-            logits, cache = tfm.serve_decode(params, tok, t, cache, cfg)
+            logits, cache = _resilient_step(tfm.serve_decode, params, tok,
+                                            t, cache, cfg)
             tok = torch.argmax(logits, dim=-1)[:, None]
             obs_trace.synchronize(tok)
             steps.append(time.perf_counter() - td)
@@ -168,7 +189,7 @@ def score_loop(params: dict, items: torch.Tensor, cfg, top_k: int = 10,
 
     if reps < 1:
         raise ValueError("need one rep at least")
-    vals, ids = bert4rec_score(params, items, cfg, top_k=top_k)
+    vals, ids = _resilient_step(bert4rec_score, params, items, cfg, top_k)
     obs_trace.synchronize(vals)
     hist = _obs.histogram("serve.score_seconds",
                           "recsys catalogue-scoring walltime per batch")
@@ -177,7 +198,8 @@ def score_loop(params: dict, items: torch.Tensor, cfg, top_k: int = 10,
                         reps=reps) as sp:
         for _ in range(reps):
             tr = time.perf_counter()
-            vals, ids = bert4rec_score(params, items, cfg, top_k=top_k)
+            vals, ids = _resilient_step(bert4rec_score, params, items, cfg,
+                                        top_k)
             obs_trace.synchronize(vals)
             reps_s.append(time.perf_counter() - tr)
             hist.observe(reps_s[-1])

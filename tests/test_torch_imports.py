@@ -28,6 +28,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.configs.recsys_archs\n"
         "import repro_torch.core.traversal\n"
         "import repro_torch.obs.export, repro_torch.obs.report\n"
+        "import repro_torch.resilience, repro_torch.tune\n"
+        "import repro_torch.tune.__main__, repro_torch.tune.suite\n"
+        "import repro_torch.core.cache_model, repro_torch.configs.graphcage\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
@@ -56,3 +59,24 @@ def test_card_scripts_import_neither_jax_nor_repro():
              *sorted((ROOT / "benchmarks").glob("torch_*.py"))]
     assert ROOT / "benchmarks" / "torch_paper_figs.py" in files
     assert _offenders(files, ROOT) == []
+
+
+def test_tune_cli_help_runs_without_jax():
+    """``python -m repro_torch.tune --help`` in a process that then lists
+    what it imported: neither ``jax`` nor ``repro``."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['repro_torch.tune', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.tune', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD:' + ','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert "{tune,show,apply}" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "BAD:", out.stdout

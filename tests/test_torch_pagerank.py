@@ -143,25 +143,32 @@ _LATER_SLICES = [
 @pytest.mark.parametrize("kw,item", _LATER_SLICES,
                          ids=["schedule-auto", "impl-auto",
                               "allow_fallback", "impl-reference"])
-def test_unported_options_raise(kw, item):
-    """Options that later slices bring raise NotImplementedError naming
-    their ROADMAP item; none of them quietly runs something else."""
+def test_unported_options_raise(kw, item, tmp_path, monkeypatch):
+    """The options the port once refused (the tuner's ``"auto"``, ROADMAP
+    A8; the ladder's opt-in and its ``"reference"`` rung, A6) now run:
+    with an empty tuning DB and no fault each gives exactly what the
+    explicit uniform slab call gives, on every entry point."""
+    from repro_torch.tune import plan as tune_plan
+
+    del item
+    monkeypatch.setenv("REPRO_TUNE_DIR", str(tmp_path))
+    tune_plan.clear_cache()
     g = T.rmat_graph(7, 4, seed=2, weights=True)
     dg = T.DeviceGraph.from_host(g, device="cpu")
     pull = T.build_blocked(g, block_size=64, device="cpu")
     push = T.build_blocked(g, block_size=64, direction="push", device="cpu")
     x = torch.ones(g.n)
     calls = [
-        lambda: T.pagerank(dg, pull, variant="gc-pull", **kw),
-        lambda: T.pagerank(dg, None, variant="base", **kw),
-        lambda: T.spmv(dg, push, x, variant="gc-push", **kw),
-        lambda: T.tocab_pull(pull, x, **kw),
-        lambda: T.tocab_push(push, x, **kw),
-        lambda: T.tocab_edge_reduce(pull, torch.ones(g.m), **kw),
+        lambda **o: T.pagerank(dg, pull, variant="gc-pull", **o)[0],
+        lambda **o: T.pagerank(dg, None, variant="base", **o)[0],
+        lambda **o: T.spmv(dg, push, x, variant="gc-push", **o),
+        lambda **o: T.tocab_pull(pull, x, **o),
+        lambda **o: T.tocab_push(push, x, **o),
+        lambda **o: T.tocab_edge_reduce(pull, torch.ones(g.m), **o),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+        assert torch.equal(call(**kw), call())
+    tune_plan.clear_cache()
 
 
 def test_pagerank_argument_errors():

@@ -214,20 +214,37 @@ def _call(algo, p, **kw):
     return T.connected_components(p.dg, p.dgt, p.bg, **kw)
 
 
+def _same(a, b):
+    """Traversal results (tuples of tensors and ints) equal exactly."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b, strict=True))
+    return a == b
+
+
 @pytest.mark.parametrize("algo", ["bfs", "bc", "sssp", "cc"])
-def test_refusals(pairs, algo):
-    """``"auto"`` resolves through the tuner (A8, not ported) and raises;
-    fused × balanced is an error, as in ``tocab_pull``."""
+def test_refusals(pairs, algo, tmp_path, monkeypatch):
+    """``"auto"`` resolves through the tuner: with an empty tuning DB it
+    runs what an untuned graph runs (uniform slab, α 15), and under
+    ``schedule="auto"`` the fused impl stays fused; fused × balanced given
+    explicitly is still an error, as in ``tocab_pull``."""
+    from repro_torch.tune import plan as tune_plan
+
+    monkeypatch.setenv("REPRO_TUNE_DIR", str(tmp_path))
+    tune_plan.clear_cache()
     p = pairs[True]
+    slab = _call(algo, p)
     for kw in ({"schedule": "auto"}, {"impl": "auto"},
-               {"schedule": "auto", "impl": "fused"}):
-        with pytest.raises(NotImplementedError, match="A8"):
-            _call(algo, p, **kw)
+               {"schedule": "auto", "impl": "auto"}):
+        assert _same(_call(algo, p, **kw), slab)
+    assert _same(_call(algo, p, schedule="auto", impl="fused"),
+                 _call(algo, p, impl="fused"))
     if algo in ("bfs", "bc"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            _call(algo, p, schedule="auto", alpha=None)
+        assert _same(_call(algo, p, schedule="auto", alpha=None), slab)
     with pytest.raises(ValueError, match="incompatible"):
         _call(algo, p, impl="fused", schedule="balanced")
+    tune_plan.clear_cache()
 
 
 def _series(registry, name):
