@@ -117,7 +117,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (out-edges of the reached vertices over seconds, Graph500's TEPS) and
    ms per push and per pull level (the time between two frontier reads).
 10. Resilience and the tuner (``repro_torch.resilience``,
-   ``repro_torch.tune``).  (a) On phase 4's layouts, right after phase 9:
+   ``repro_torch.tune``).  (a) On phase 4's layouts, right after phase 11:
    on the card the ladder stays off — an injected ``kernel.tocab_fused``
    fault makes PageRank ``gc-pull`` / ``gc-push`` ``impl="fused"`` raise
    ``ChaosError`` with ``allow_fallback=True`` as without it (no fallback
@@ -142,9 +142,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode step has written the KV cache in place, gives the greedy tokens
    of the run without it, one retry each; after phase 8: ``score_loop``
    with a fault gives phase 8's ids and scores.
+11. The paper's §3.1 ablations on phase 4's graph, right after phase 9
+   (``repro_torch.core.ablations``): the 2D-blocked layout built on the
+   card from ``dg``'s edge lists (CSR order) at phase 4's block, 3 × 3
+   tiles (build seconds, ``edge_budget``, edges a tile, slots and peak
+   memory printed); then one SpMV-shaped pull of phase 4's ``x`` through
+   flat ``base``, ``tocab_pull`` slab and fused, ``tocab_pull_2d`` and
+   ``propagation_blocking_pull`` at 16 bins (4 MB of fp32 a bin), each in
+   ``sum`` (``SUM_RTOL`` and ``sum_atol``), ``min`` and ``max`` (exactly)
+   against ``base``.  ``fused_pull`` launches once a fused call and no
+   other engine launches a kernel.  One ``ablation`` line an engine: the
+   median of 5 synchronised host-clock calls (ms, GTEPS), blocks, slots,
+   and one call's device time by kernel (``torch.profiler``).  The layout
+   is freed before phase 10(a).
    Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
-   phases 4, 6, 8, 9 and 10(b) must end with no ``resilience.*`` counter
-   moved (``resilience_quiet`` lines).
+   phases 4, 6, 8, 9, 10(b) and 11 must end with no ``resilience.*``
+   counter moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -1237,6 +1250,116 @@ def phase_traversal(main: dict, seed: int, log) -> dict:
           "phase_seconds": time.perf_counter() - t_phase})
     log(f"traversal: sources={sources} zero_weight_edges={zero_weight}")
     return launches
+
+
+# --------------------------------------------------------------------- #
+# phase 11: the paper's §3.1 ablations on the main path's graph
+# --------------------------------------------------------------------- #
+#: propagation blocking's bins at scale 24: 1,048,576 vertices, 4 MB of
+#: fp32 a bin (the reference figure's count)
+ABLATION_BINS = 16
+#: timed calls per engine after one warm-up (median taken)
+ABLATION_REPS = 5
+
+
+def device_breakdown(fn, top: int = 4) -> dict:
+    """Device time of one ``fn()`` by kernel, from ``torch.profiler``'s
+    CUDA activity: the sum over kernels and the ``top`` largest (name cut
+    to 80 characters, ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key[:80], e.device_time_total / 1e3)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    return {"device_ms": sum(ms for _, ms in rows),
+            "top": [list(r) for r in rows[:top]]}
+
+
+def phase_ablation(main: dict, log):
+    """One SpMV-shaped pull of the main path's ``x`` through flat ``base``,
+    TOCAB slab and fused, 2D blocking and propagation blocking, each
+    semiring held against ``base``; the 2D layout is built on the card from
+    ``dg``'s edge lists at phase 4's block and freed on return."""
+    import torch
+
+    from repro_torch.core import baseline_pull, tocab_pull
+    from repro_torch.core.ablations import (build_blocked_2d,
+                                            propagation_blocking_pull,
+                                            tocab_pull_2d)
+    from repro_torch.kernels import cuda_build
+
+    dg, bp, x, m = main["dg"], main["pull"], main["x"], main["m"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b2, secs = timed_run(lambda: build_blocked_2d(dg, bp.block_size))
+    tile_edges = b2.edge_mask.sum(1).tolist()
+    slots_2d = b2.num_tiles * b2.edge_budget
+    layout_bytes = sum(t.numel() * t.element_size() for t in (
+        b2.src_rel, b2.dst_rel, b2.edge_mask, b2.edge_vals))
+    emit({"phase": "ablation_build", "block_size": b2.block_size,
+          "tiles_per_side": b2.tiles_per_side,
+          "edge_budget": b2.edge_budget, "tile_edges": tile_edges,
+          "slots": slots_2d, "slots_per_edge": slots_2d / m,
+          "seconds": secs, "layout_gb": layout_bytes / 1e9,
+          "build_peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+          "held_before_gb": held / 1e9})
+    if sum(tile_edges) != m or b2.m != m:
+        raise AssertionError(f"2D layout holds {sum(tile_edges)} edges of "
+                             f"{m}")
+    engines = {
+        "base": (lambda r: baseline_pull(dg, x, r), 1, m),
+        "tocab_1d/slab": (lambda r: tocab_pull(bp, x, r), bp.num_blocks,
+                          bp.num_blocks * bp.edge_budget),
+        "tocab_1d/fused": (lambda r: tocab_pull(bp, x, r, impl="fused"),
+                           bp.num_blocks, bp.num_blocks * bp.edge_budget),
+        "blocked_2d": (lambda r: tocab_pull_2d(b2, x, r), b2.num_tiles,
+                       slots_2d),
+        "prop_blocking": (lambda r: propagation_blocking_pull(
+            dg, x, ABLATION_BINS, r), ABLATION_BINS, m),
+    }
+    # base is also held against its own first call: its sum adds with
+    # atomics, so even that is exact only for min and max
+    refs = {r: engines["base"][0](r) for r in ("sum", "min", "max")}
+    for name, (fn, blocks, slots) in engines.items():
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        checks = {}
+        for reduce, ref in refs.items():
+            out = fn(reduce)
+            if out.shape != ref.shape:
+                raise AssertionError(f"ablation {name}/{reduce}: shape "
+                                     f"{tuple(out.shape)}")
+            err, atol, used = check_close(f"ablation {name}/{reduce} vs "
+                                          "base", out, ref, reduce)
+            checks[reduce] = {"max_abs_err": err, "atol": atol,
+                              "tolerance_used": used}
+            del out
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.launches)
+        want = 3 if name == "tocab_1d/fused" else 0
+        if launches.get("fused_pull", 0) != want or \
+                sum(launches.values()) != want:
+            raise AssertionError(f"ablation {name}: launches {launches}, "
+                                 f"want fused_pull {want} for 3 calls")
+        timed_run(lambda: fn("sum"))  # warm-up
+        times = [timed_run(lambda: fn("sum"))[1]
+                 for _ in range(ABLATION_REPS)]
+        ms = 1e3 * sorted(times)[len(times) // 2]
+        line = {"phase": "ablation", "engine": name, "ms": ms,
+                "ms_all": [1e3 * t for t in times], "gteps": m / ms / 1e6,
+                "blocks": blocks, "slots": slots, "launches": launches,
+                "sum_rtol": SUM_RTOL, "checks": checks,
+                "device": device_breakdown(lambda: fn("sum"))}
+        emit(line)
+        log(json.dumps(line))
+    del b2, refs
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -2712,6 +2835,8 @@ def main(argv=None) -> int:
     records = phase_timing(main_state, log, floors, previous)
     phase_traversal(main_state, SEED, log)
     quiet = check_quiet("phase 9", quiet)
+    phase_ablation(main_state, log)
+    quiet = check_quiet("phase 11", quiet)
     phase_ladder(main_state, SEED, log)
     del main_state
     torch.cuda.empty_cache()

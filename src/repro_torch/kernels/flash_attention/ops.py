@@ -41,8 +41,10 @@ def attention(
     sliding ``window`` (0: none) and ``softcap`` (0: none); output in
     ``q.dtype``."""
     if pick_backend(q, backend) == "torch":
-        return attention_ref(q, k, v, scale=scale, causal=causal,
-                             window=window, softcap=softcap)
+        # contiguous operands: the einsums' rounding must not follow strides
+        return attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                             scale=scale, causal=causal, window=window,
+                             softcap=softcap)
     if attention_route(q.dtype, q.shape[-1]) == "wgmma":
         q, k, v = (t if strided_ok(t) else t.contiguous() for t in (q, k, v))
     else:

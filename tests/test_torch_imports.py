@@ -31,6 +31,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.resilience, repro_torch.tune\n"
         "import repro_torch.tune.__main__, repro_torch.tune.suite\n"
         "import repro_torch.core.cache_model, repro_torch.configs.graphcage\n"
+        "import repro_torch.core.ablations\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
