@@ -155,9 +155,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    median of 5 synchronised host-clock calls (ms, GTEPS), blocks, slots,
    and one call's device time by kernel (``torch.profiler``).  The layout
    is freed before phase 10(a).
+12. MoE serving at full width, after phase 8 (``models/moe.py``: sorted
+   binning, capacity slabs, expert ``bmm``, a fixed-order combine; random
+   weights from ``SEED``, prompts from ``data.tokens``).  (a)
+   Granite-MoE-3B-A800M at its published config (32 layers, d 1536, 40
+   experts top-8): parameters equal ``cfg.param_count()``; fp32 forward
+   vs one decode step a position on 2 × 128 tokens at capacity factor
+   E / top_k (no drop), at ``LM_RTOL`` / ``LM_ATOL`` with equal greedy
+   tokens; layer 0's MoE block at the published capacity factor 1.25 on
+   8 × 2048 tokens of layer-0 activations, fp32, against a dense
+   per-expert oracle written here (expert ids and kept set exactly,
+   outputs at ``LM_RTOL`` / ``LM_ATOL``; dropped pairs printed); the
+   serving loop 8 × (128 + 32), bf16, ``flash_decode`` exactly 32 times a
+   decode step and ``flash_attention`` never; ``serve_prefill`` 8 × 2048,
+   ``flash_attention`` exactly 32 times, all on the tensor cores; a
+   repeated decode step bit-equal.  (b) Mixtral-8x22B at its published
+   width (d 6144, 48/8 heads, D 128, 8 experts top-2, window 4096), depth
+   cut to 2 layers (56 would be ~281 GB in bf16): fp32 forward vs decode;
+   ``serve_prefill`` on 1 × 8192 tokens (the windowed tensor-core route at
+   D 128), ``flash_attention`` exactly 2 times; the serving loop
+   8 × (128 + 32), ``flash_decode`` exactly 2 times a step.  (c) Between
+   the two: phase 10(c)'s retried decode run on Granite.  One
+   ``moe_serve`` line an arch (ms a decode step, tokens/s, prefill
+   seconds, the decode step's byte bound, one decode step's and one
+   prefill's device time by op from ``torch.profiler``); the ``kernels``
+   record's rows 4-5 gain each arch's launches (``moe``).
    Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
-   phases 4, 6, 8, 9, 10(b) and 11 must end with no ``resilience.*``
-   counter moved (``resilience_quiet`` lines).
+   phases 4, 6, 8, 9, 10(b), 11, 12(a) and 12(b) must end with no
+   ``resilience.*`` counter moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -1392,7 +1417,7 @@ def phase_attention_kernels(seed: int, log) -> dict:
     (``attention_ref``, ``flash_decode_ref``) over GQA groups, masks,
     windows, softcaps, ragged lengths and both dtypes; the decode kernel's
     split-count invariance and its empty splits; both kernels in fp32 at
-    the main path's shapes."""
+    the main path's shapes, and in bf16 at the MoE archs' shapes."""
     import torch
 
     from repro_torch.kernels.flash_attention.decode_kernel import (
@@ -1430,6 +1455,7 @@ def phase_attention_kernels(seed: int, log) -> dict:
         w = worst[name][dt]
         worst[name][dt] = (max(w[0], err), max(w[1], share))
         cases[name] += 1
+        return share
 
     shapes = (  # (B, Hq, Hkv, Sq, Skv, D): groups 1, 4, 8; ragged; Sq ≠ Skv
         (1, 4, 4, 128, 128, 64), (2, 8, 2, 200, 200, 64),
@@ -1570,6 +1596,55 @@ def phase_attention_kernels(seed: int, log) -> dict:
     del q, k, v, out, ref
     torch.cuda.empty_cache()
 
+    # the MoE archs' shapes in bf16 (phase 12): Granite's prefill (24 query
+    # / 8 KV heads of 64, a group of 3, causal, 8 × 2048) and Mixtral's
+    # (48 / 8 heads of 128, a group of 6, window 4096, 1 × 8192: past the
+    # window), both on the tensor cores; their decode caches (160 slots,
+    # and Mixtral's full 4096-slot ring).  The plain version runs one KV
+    # head at a time, which bounds its fp32 scores at 1.6 GB
+    def attention_ref_by_kv_head(q, k, v, **kw):
+        g = q.shape[1] // k.shape[1]
+        return torch.cat([attention_ref(q[:, h * g:(h + 1) * g],
+                                        k[:, h:h + 1], v[:, h:h + 1], **kw)
+                          for h in range(k.shape[1])], dim=1)
+
+    moe_shapes = {}
+    for arch, (B, Hq, Hkv, S, D, window) in (
+            ("granite", (8, 24, 8, 2048, 64, 0)),
+            ("mixtral", (1, 48, 8, 8192, 128, 4096))):
+        q = rand(B, Hq, S, D, dtype=bf16)
+        k, v = (rand(B, Hkv, S, D, dtype=bf16) for _ in range(2))
+        n_tc = cuda_build.launches["flash_attention_wgmma"]
+        out = flash_attention_cuda(q, k, v, causal=True, window=window)
+        ref = attention_ref_by_kv_head(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        if cuda_build.launches["flash_attention_wgmma"] != n_tc + 1:
+            raise AssertionError(f"flash_attention: {arch}'s bf16 prefill "
+                                 "did not take the tensor-core kernel")
+        on_tc += 1
+        what = (f"{bf16} q={tuple(q.shape)} kv={tuple(k.shape)} causal "
+                f"window={window} wgmma ({arch})")
+        moe_shapes[f"flash_attention {what}"] = record(
+            "flash_attention", what, out, ref)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    for arch, (B, Hq, Hkv, S, D) in (
+            ("granite", (8, 24, 8, 160, 64)),
+            ("mixtral", (8, 48, 8, 160, 128)),
+            ("mixtral", (8, 48, 8, 4096, 128))):
+        q = rand(B, Hq, 1, D, dtype=bf16)
+        k, v = (rand(B, Hkv, S, D, dtype=bf16) for _ in range(2))
+        for kv_len in sorted({S, S // 2 + 1}):
+            out = flash_decode(q, k, v, kv_len=kv_len)
+            ref = flash_decode_ref(q, k, v, kv_len=kv_len)
+            torch.cuda.synchronize()
+            what = (f"{bf16} q={tuple(q.shape)} kv={tuple(k.shape)} "
+                    f"kv_len={kv_len} ({arch})")
+            moe_shapes[f"flash_decode {what}"] = record("flash_decode", what,
+                                                        out, ref)
+        del q, k, v
+    torch.cuda.empty_cache()
+
     # one launch a call, the same bits on every call (the merge order is
     # fixed and there are no float atomics): the serve shape, 32768 slots
     repeats = {}
@@ -1624,6 +1699,7 @@ def phase_attention_kernels(seed: int, log) -> dict:
           "split_invariance_max_diff": spread,
           "q_rounded_to_bf16_least_tolerance_used": rounded_q_share,
           "flash_attention_tensor_core_cases": on_tc,
+          "moe_shapes_tolerance_used": moe_shapes,
           "flash_decode_repeats": repeats,
           "seconds": time.perf_counter() - t0})
     return worst
@@ -2720,7 +2796,8 @@ def phase_serve_retry(lm: dict, seed: int, log):
             tfm.serve_decode = self.real
             return False
 
-    rec = {"phase": "serve_retry", "arch": LM_ARCH, "requests": 2,
+    rec = {"phase": "serve_retry", "arch": lm.get("arch", LM_ARCH),
+           "requests": 2,
            "prompt_len": P, "max_new": new,
            "seconds_without_fault": want.total_seconds,
            "fault_before_step": retried(injected),
@@ -2759,6 +2836,485 @@ def phase_score_retry(b4: dict):
     if not (rec["retries"] == 1 and rec["ids_equal"]
             and rec["scores_equal"]):
         raise AssertionError(f"retried score step: {rec}")
+
+
+# --------------------------------------------------------------------- #
+# phase 12: MoE serving at full width
+# --------------------------------------------------------------------- #
+#: Granite-MoE-3B-A800M at its published config (32 layers)
+MOE_ARCH = "granite-moe-3b-a800m"
+#: Mixtral-8x22B at its published width; 56 layers would be ~281 GB in
+#: bf16, more than one card holds (sharding is ROADMAP A12)
+MIXTRAL_ARCH = "mixtral-8x22b"
+MIXTRAL_LAYERS = 2
+
+#: kernel classes of the MoE serving breakdown, by substrings of the
+#: kernel's name in the profiler's key (mangled or not); the first match
+#: wins.  GEMM kernels are split into the experts' (``aten::bmm``'s own
+#: device time) and the rest.
+KERNEL_CLASSES = {
+    "attention": ("attn_kernel", "attn_wgmma_kernel", "decode_kernel",
+                  "decode_mma_kernel"),
+    "sort": ("sort", "Sort", "radix", "Radix"),
+    "scatter_gather": ("index", "gather", "scatter", "Index", "Gather",
+                       "Scatter"),
+    "gemm": ("gemm", "nvjet", "xmma", "cutlass", "Gemm"),
+}
+
+
+def op_breakdown(fn, top: int = 6) -> dict:
+    """Device time of one ``fn()`` by kernel class, from ``torch.profiler``
+    (CPU and CUDA activity; ms): ``attention`` (the port's kernels),
+    ``sort``, ``scatter_gather``, ``expert_gemm`` (``aten::bmm``'s own
+    device time), ``dense_gemm`` (the other GEMM kernels), ``other``, the
+    total ``device_ms`` and the ``top`` largest kernels by name (cut to
+    80 characters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {c: 0.0 for c in KERNEL_CLASSES}
+    expert = 0.0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            if e.key == "aten::bmm":
+                expert += e.self_device_time_total / 1e3
+        elif e.device_time_total > 0:
+            ms = e.device_time_total / 1e3
+            kernels.append((e.key[:80], ms))
+            for c, names in KERNEL_CLASSES.items():
+                if any(n in e.key for n in names):
+                    out[c] += ms
+                    break
+    out["expert_gemm"] = expert
+    out["dense_gemm"] = out.pop("gemm") - expert
+    out["device_ms"] = sum(ms for _, ms in kernels)
+    out["other"] = out["device_ms"] - sum(
+        out[c] for c in ("attention", "sort", "scatter_gather",
+                         "expert_gemm", "dense_gemm"))
+    out["top"] = [list(k) for k in sorted(kernels, key=lambda k: -k[1])[:top]]
+    return out
+
+
+def moe_prompts(batch: int, seq_len: int, vocab: int, seed: int):
+    """(batch, seq_len) prompts on the card from the port's LM stream."""
+    from repro_torch.data.tokens import synthetic_lm_batches
+
+    toks = next(synthetic_lm_batches(batch, seq_len, vocab, seed=seed))
+    return toks["tokens"][:, :seq_len].long()
+
+
+def moe_prefill_vs_decode(arch: str, master: dict, cfg, seed: int,
+                          B: int = 2, S: int = 128) -> dict:
+    """fp32 ``forward`` (flash_attention) against one ``serve_decode`` step
+    (flash_decode) a position, at ``capacity_factor = E / top_k`` so that
+    the forward drops no pair (the reference's
+    ``test_lm_prefill_matches_decode`` does the same); logits at
+    ``LM_RTOL`` / ``LM_ATOL``, greedy tokens equal."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    cfg32 = dataclasses.replace(
+        cfg, compute_dtype="float32",
+        capacity_factor=cfg.num_experts / cfg.top_k)
+    tokens = moe_prompts(B, S, cfg.vocab, seed)
+    t0 = time.perf_counter()
+    full, aux = tfm.forward(master, tokens, cfg32)
+    cache = tfm.init_cache(cfg32, B, S, dtype=torch.float32, device=dev)
+    steps = []
+    for t in range(S):
+        lg, cache = tfm.serve_decode(master, tokens[:, t:t + 1], t, cache,
+                                     cfg32)
+        steps.append(lg)
+    dec = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del cache, steps
+    if not (bool(full.isfinite().all()) and bool(dec.isfinite().all())
+            and bool(aux.isfinite())):
+        raise AssertionError(f"{arch}: fp32 prefill/decode not finite")
+    diff = (dec - full).abs()
+    share = float((diff / (LM_ATOL + LM_RTOL * full.abs())).max())
+    differ = full.argmax(-1) != dec.argmax(-1)
+    top2 = full.topk(2, dim=-1).values
+    rec = {"phase": "moe_prefill_vs_decode_fp32", "arch": arch,
+           "layers": cfg.n_layers, "requests": B, "tokens": S,
+           "capacity_factor": cfg32.capacity_factor,
+           "max_abs_err": float(diff.max()), "rtol": LM_RTOL,
+           "atol": LM_ATOL, "tolerance_used": share,
+           "greedy_tokens_differ": int(differ.sum()),
+           "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min()),
+           "aux": float(aux), "seconds": secs}
+    emit(rec)
+    if not share <= 1.0 or bool(differ.any()):
+        raise AssertionError(f"{arch}: fp32 prefill and decode disagree: "
+                             f"{rec}")
+    return rec
+
+
+def moe_layer_vs_oracle(master: dict, cfg, seed: int, B: int = 8,
+                        S: int = 2048) -> dict:
+    """Layer 0's MoE block at the published capacity factor on B × S
+    tokens of layer-0 activations (the embedding through layer 0's
+    attention and norm), in fp32, against a dense per-expert oracle: for
+    each expert, the pairs routed to it in flat (token, slot) order, the
+    first C kept.  Expert ids and the kept set equal exactly, outputs at
+    ``LM_RTOL`` / ``LM_ATOL``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p = master["layers"][0]
+    tokens = moe_prompts(B, S, cfg.vocab, seed + 1)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = tfm._embed(master, tokens, cfg32)
+    h = L.rms_norm(x, p["ln_attn"], plus_one=cfg.norm_plus_one)
+    x = x + L.attention_block(p["attn"], h, positions, cfg32.attn_cfg(True))
+    h = L.rms_norm(x, p["ln_mlp"], plus_one=cfg.norm_plus_one)
+    mcfg = cfg32.moe_cfg()
+    E, k, n, d = cfg.num_experts, cfg.top_k, B * S, cfg.d_model
+    t0 = time.perf_counter()
+    out, aux = moe.moe_block(p["moe"], h, mcfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # the port's kept set, as an (n, k) mask over (token, slot) pairs
+    xt = h.reshape(n, d)
+    _, gates, ids = moe.route(p["moe"], xt, mcfg)
+    C = moe._capacity(n, mcfg)
+    *_, keep, order = moe._bin_and_dispatch(xt, gates, ids, E, C)
+    kept = torch.zeros(n * k, dtype=torch.bool, device=xt.device)
+    kept[order] = keep
+    kept = kept.view(n, k)
+
+    # the oracle: its own routing (torch.topk), capacity and expert loop
+    w = p["moe"]
+    probs = torch.softmax(xt @ w["router"], dim=-1)
+    o_vals, o_ids = torch.topk(probs, k, dim=-1)
+    o_gates = o_vals / o_vals.sum(-1, keepdim=True)
+    o_cap = max(8, -(-int(n * k * mcfg.capacity_factor / E) // 8) * 8)
+    o_kept = torch.zeros(n, k, dtype=torch.bool, device=xt.device)
+    want = torch.zeros_like(xt)
+    for e in range(E):
+        t, j = (o_ids == e).nonzero(as_tuple=True)  # flat (token, slot)
+        t, j = t[:o_cap], j[:o_cap]
+        o_kept[t, j] = True
+        xe = xt[t]
+        y = (F.silu(xe @ w["w_gate"][e]) * (xe @ w["w_up"][e])
+             ) @ w["w_down"][e]
+        want.index_add_(0, t, o_gates[t, j, None] * y)
+    got = out.reshape(n, d)
+    diff = (got - want).abs()
+    share = float((diff / (LM_ATOL + LM_RTOL * want.abs())).max())
+    rec = {"phase": "moe_layer_vs_oracle", "arch": cfg.name, "layer": 0,
+           "tokens": n, "experts": E, "top_k": k,
+           "capacity_factor": mcfg.capacity_factor, "capacity": C,
+           "oracle_capacity": o_cap,
+           "ids_equal": bool(torch.equal(ids, o_ids)),
+           "kept_equal": bool(torch.equal(kept, o_kept)),
+           "pairs": n * k, "dropped_pairs": int((~kept).sum()),
+           "max_bin": int(torch.bincount(ids.reshape(-1),
+                                         minlength=E).max()),
+           "max_abs_err": float(diff.max()), "rtol": LM_RTOL,
+           "atol": LM_ATOL, "tolerance_used": share, "aux": float(aux),
+           "moe_block_seconds": secs}
+    emit(rec)
+    if not (rec["ids_equal"] and rec["kept_equal"] and C == o_cap
+            and share <= 1.0):
+        raise AssertionError(f"moe_block vs the dense oracle: {rec}")
+    return rec
+
+
+def moe_serve(arch: str, params: dict, cfg, seed: int, Bs: int = 8,
+              P: int = 128, new: int = 32) -> dict:
+    """The serving loop, Bs requests × (P prompt + new) tokens, bf16:
+    ``flash_decode`` launched exactly once a layer a decode step and
+    ``flash_attention`` never (counts set to 0 just before the run)."""
+    import torch
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch.serve import serve_loop
+
+    prompts = moe_prompts(Bs, P, cfg.vocab, seed + 2)
+    serve_loop(params, prompts[:, :8], cfg, 4)  # warm-up: allocator
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    res = serve_loop(params, prompts, cfg, new)
+    launches = dict(cuda_build.launches)
+    want = cfg.n_layers * res.decode_steps
+    toks = res.tokens
+    if toks.shape != (Bs, new) or not bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{arch} serve: bad tokens {toks.shape}")
+    if launches.get("flash_decode", 0) != want \
+            or launches.get("flash_attention", 0) != 0:
+        raise AssertionError(f"{arch} serve launched {launches}; want "
+                             f"flash_decode = {want}, flash_attention = 0")
+    step_ms = sorted(1e3 * s for s in res.step_seconds)
+    return {"requests": Bs, "prompt_len": P, "max_new": new,
+            "decode_steps": res.decode_steps,
+            "serve_prefill_seconds": res.prefill_seconds,
+            "decode_ms_per_step": 1e3 * res.decode_seconds / new,
+            "decode_step_ms_p50": step_ms[len(step_ms) // 2],
+            "decode_step_ms_max": step_ms[-1],
+            "tokens_per_s": res.tokens_per_s,
+            "decode_tokens_per_s": res.decode_tokens_per_s,
+            "serve_launches": launches,
+            "flash_decode_per_step": launches.get("flash_decode", 0)
+            // res.decode_steps, "prompts": prompts}
+
+
+def moe_prefill(arch: str, params: dict, cfg, seed: int, Bp: int,
+                Sp: int) -> dict:
+    """``serve_prefill`` on Bp × Sp tokens, bf16: ``flash_attention``
+    launched exactly once a layer, all on the tensor-core route; then the
+    same call's device time by op."""
+    import torch
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import transformer as tfm
+
+    toks = moe_prompts(Bp, Sp, cfg.vocab, seed + 3)
+    tfm.serve_prefill(params, toks[:1, :256], cfg)  # warm-up
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    last = tfm.serve_prefill(params, toks, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_build.launches)
+    if launches.get("flash_attention", 0) != cfg.n_layers \
+            or launches.get("flash_attention_wgmma", 0) != cfg.n_layers \
+            or launches.get("flash_decode", 0) != 0:
+        raise AssertionError(f"{arch} serve_prefill launched {launches}; "
+                             f"want flash_attention = {cfg.n_layers}, all "
+                             "on the tensor cores, flash_decode = 0")
+    if last.shape != (Bp, cfg.vocab) or not bool(last.isfinite().all()):
+        raise AssertionError(f"{arch} serve_prefill: bad logits")
+    breakdown = op_breakdown(lambda: tfm.serve_prefill(params, toks, cfg))
+    return {"prefill_requests": Bp, "prefill_tokens": Sp,
+            "prefill_seconds": secs, "prefill_tokens_per_s": Bp * Sp / secs,
+            "prefill_launches": launches,
+            "prefill_device_ms_by_op": breakdown}
+
+
+def decode_step_bytes(params: dict, cfg, batch: int, kv_len: int,
+                      reached=None) -> int:
+    """Bytes one decode step must read: every weight but the experts
+    (the fp32 (un)embedding table once), of each layer's experts those in
+    ``reached`` (the count its routing reaches; all of them when None,
+    which is what the (E, C) slab design reads), and the live K/V of
+    every layer (bf16)."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    total = nbytes(params)
+    if reached is not None:
+        for p, hit in zip(params["layers"], reached):
+            experts = {n: w for n, w in p["moe"].items() if n != "router"}
+            total -= nbytes(experts) * (cfg.num_experts - hit) \
+                // cfg.num_experts
+    kv = 2 * cfg.n_layers * batch * cfg.n_kv_heads * kv_len * cfg.head_dim * 2
+    return total + kv
+
+
+def moe_decode_profile(params: dict, cfg, prompts) -> dict:
+    """Prefill a cache by decode steps over ``prompts``, then: one more
+    step repeated on the same cache and position gives bit-equal logits
+    (the fixed-order combine), the experts that step's routing reaches in
+    each layer (read by wrapping ``moe.route`` for the first of the two
+    calls), and that step's device time by op."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    B, P = prompts.shape
+    cache = tfm.init_cache(cfg, B, P, device=prompts.device)
+    for t in range(P - 1):
+        _, cache = tfm.serve_decode(params, prompts[:, t:t + 1], t, cache,
+                                    cfg)
+    tok = prompts[:, -1:]
+    route, ids = moe.route, []
+
+    def recording_route(*args):
+        out = route(*args)
+        ids.append(out[2])
+        return out
+
+    moe.route = recording_route
+    try:
+        a, _ = tfm.serve_decode(params, tok, P - 1, cache, cfg)
+    finally:
+        moe.route = route
+    b, _ = tfm.serve_decode(params, tok, P - 1, cache, cfg)
+    if not torch.equal(a, b):
+        raise AssertionError(
+            f"{cfg.name}: a repeated decode step changed the logits by up to "
+            f"{float((a - b).abs().max())}")
+    if len(ids) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {len(ids)} routings in a decode "
+                             f"step of {cfg.n_layers} layers")
+    breakdown = op_breakdown(
+        lambda: tfm.serve_decode(params, tok, P - 1, cache, cfg))
+    return {"repeat_step_bit_equal": True,
+            "experts_reached": [int(i.unique().numel()) for i in ids],
+            "decode_step_device_ms_by_op": breakdown}
+
+
+def moe_serve_line(arch, cfg, params, serve, prefill, step, checks,
+                   t_phase) -> dict:
+    """The arch's ``moe_serve`` line, with the card and the decode step's
+    byte bound: over the experts the profiled step's routing reaches
+    (``decode_step_bound_ms``), and over all of them, as the (E, C) slabs
+    read them (``slab_design_bound_ms``)."""
+    kv_len = serve["prompt_len"] + serve["max_new"]
+    nbytes = decode_step_bytes(params, cfg, serve["requests"], kv_len,
+                               step["experts_reached"])
+    slab = decode_step_bytes(params, cfg, serve["requests"], kv_len)
+    line = {"phase": "moe_serve", "arch": arch, "card": card_line(),
+            "layers": cfg.n_layers, **serve, **prefill, **step,
+            "experts_reached_mean": sum(step["experts_reached"])
+            / cfg.n_layers,
+            "decode_step_bytes": nbytes,
+            "decode_step_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "slab_design_bytes": slab,
+            "slab_design_bound_ms": 1e3 * slab / HBM_BYTES_PER_S,
+            "checks": {n: c["tolerance_used"] for n, c in checks.items()},
+            "phase_seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+def moe_init(arch: str, cfg, seed: int, full=None) -> dict:
+    """fp32 parameters of ``cfg`` from ``seed`` on the card, their count
+    held against ``cfg.param_count()``; ``full`` is the published config
+    when ``cfg`` cuts its depth."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    master = tfm.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    n_params = tfm.param_count(master)
+    rec = {"phase": "moe_init", "arch": arch,
+           "config": dataclasses.asdict(cfg), "params": n_params,
+           "active_params": cfg.active_param_count(),
+           "seconds": time.perf_counter() - t0}
+    if full is not None:
+        rec["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                          "published_params": full.param_count(),
+                          "why": "56 layers are ~281 GB in bf16, more than "
+                                 "one 80 GB card holds"}
+    emit(rec)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config says "
+                             f"{cfg.param_count()}")
+    return master
+
+
+def phase_moe_granite(seed: int, log) -> dict:
+    """Phase 12(a): Granite-MoE-3B-A800M at its published config, random
+    weights from ``seed`` on the card: parameter count; fp32 forward vs
+    decode; layer 0's MoE block vs the dense oracle; the bf16 serving loop
+    and ``serve_prefill`` with exact launch counts; a repeated decode step
+    bit-equal; the ``moe_serve`` line.  Returns the bf16 parameters for
+    phase 12(c)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(MOE_ARCH).make_model_cfg()
+    master = moe_init(MOE_ARCH, cfg, seed)
+    checks = {"prefill_vs_decode": moe_prefill_vs_decode(MOE_ARCH, master,
+                                                         cfg, seed),
+              "layer_vs_oracle": moe_layer_vs_oracle(master, cfg, seed)}
+    params = tfm.cast_params(master, cfg)
+    del master
+    torch.cuda.empty_cache()
+    serve = moe_serve(MOE_ARCH, params, cfg, seed)
+    prompts = serve.pop("prompts")
+    prefill = moe_prefill(MOE_ARCH, params, cfg, seed, 8, 2048)
+    step = moe_decode_profile(params, cfg, prompts[:, :16])
+    line = moe_serve_line(MOE_ARCH, cfg, params, serve, prefill, step,
+                          checks, t_phase)
+    return {"params": params, "cfg": cfg, "arch": MOE_ARCH, "line": line}
+
+
+def phase_moe_mixtral(seed: int, log) -> dict:
+    """Phase 12(b): Mixtral-8x22B at its published width (d 6144, 48/8
+    heads, D 128, 8 experts top-2, window 4096), depth cut to
+    :data:`MIXTRAL_LAYERS`: fp32 forward vs decode; ``serve_prefill`` on
+    1 × 8192 tokens (past the window: the windowed tensor-core route at
+    D 128); the serving loop 8 × (128 + 32); the ``moe_serve`` line."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    full = get_arch(MIXTRAL_ARCH).make_model_cfg()
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    master = moe_init(MIXTRAL_ARCH, cfg, seed, full=full)
+    checks = {"prefill_vs_decode": moe_prefill_vs_decode(
+        MIXTRAL_ARCH, master, cfg, seed)}
+    params = tfm.cast_params(master, cfg)
+    del master
+    torch.cuda.empty_cache()
+    prefill = moe_prefill(MIXTRAL_ARCH, params, cfg, seed, 1, 8192)
+    serve = moe_serve(MIXTRAL_ARCH, params, cfg, seed)
+    prompts = serve.pop("prompts")
+    step = moe_decode_profile(params, cfg, prompts[:, :16])
+    line = moe_serve_line(MIXTRAL_ARCH, cfg, params, serve, prefill, step,
+                          checks, t_phase)
+    del params
+    torch.cuda.empty_cache()
+    return {"line": line}
+
+
+def add_moe_launches(records: list, lines: list):
+    """Rows 4-5 of the ``kernels`` record gain phase 12's launches a
+    serving arch, and the kernel's device time (ms, ``torch.profiler``)
+    over all its calls in one ``serve_prefill`` (flash_attention) or one
+    decode step (flash_decode), and that over the calls (one a layer)."""
+    where = {"flash_attention": ("prefill_device_ms_by_op",
+                                 "device_ms_in_one_prefill"),
+             "flash_decode": ("decode_step_device_ms_by_op",
+                              "device_ms_in_one_step")}
+    for row in records:
+        if row["name"] not in where:
+            continue
+        by_op, key = where[row["name"]]
+        row["moe"] = {
+            ln["arch"]: {
+                "layers": ln["layers"],
+                "launches_serve_loop": ln["serve_launches"].get(row["name"],
+                                                                0),
+                "launches_serve_prefill":
+                    ln["prefill_launches"].get(row["name"], 0),
+                key: ln[by_op]["attention"],
+                "device_ms_per_call": ln[by_op]["attention"] / ln["layers"]}
+            for ln in lines}
 
 
 def main(argv=None) -> int:
@@ -2855,6 +3411,17 @@ def main(argv=None) -> int:
     phase_score_retry(b4)
     del b4
     torch.cuda.empty_cache()
+    t_moe = time.perf_counter()
+    quiet = resilience_total()
+    granite = phase_moe_granite(SEED, log)
+    quiet = check_quiet("phase 12(a)", quiet)
+    phase_serve_retry(granite, SEED, log)
+    torch.cuda.empty_cache()
+    quiet = resilience_total()
+    mixtral = phase_moe_mixtral(SEED, log)
+    check_quiet("phase 12(b)", quiet)
+    add_moe_launches(records, [granite["line"], mixtral["line"]])
+    emit({"phase": "moe_seconds", "seconds": time.perf_counter() - t_moe})
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

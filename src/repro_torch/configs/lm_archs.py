@@ -3,8 +3,7 @@ reference's ``configs/lm_archs.py`` gives them.
 
 Per-arch ``long_500k`` policy: pure global-attention archs skip it; Mixtral
 (SWA) and Gemma-2 (local/global alternating) run it.  The MoE configs
-(Granite, Mixtral) are listed but their experts are not ported yet:
-``init_params`` raises for them (ROADMAP A11, MoE part).
+(Granite, Mixtral) run through ``models/moe.py``.
 """
 from __future__ import annotations
 

@@ -4,6 +4,8 @@ greedy decode with a KV cache) and the recsys scoring loop, on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         [--full] [--requests 8] [--prompt-len 16] [--max-new 16] \
         [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m [--full] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec \
         [--full] [--requests 8] [--device cuda]
 
@@ -16,7 +18,10 @@ config (random weights from a seed: the repo holds no checkpoint).
   request decodes greedily; it returns the tokens and the timings and
   records the reference's ``serve.*`` metrics and ``serve.prefill`` /
   ``serve.decode`` spans.  Every step's attention runs on the
-  ``flash_decode`` kernel on the card.
+  ``flash_decode`` kernel on the card.  The five LM archs serve through
+  it, the MoE ones (granite-moe-3b-a800m, mixtral-8x22b) too; Mixtral's
+  published config (140.4 B parameters) does not fit one card, and, as in
+  the reference's launcher, no flag cuts its depth.
 * :func:`score_loop` is the recsys loop: ``bert4rec_score`` (top-10 over
   the whole item table) on one batch of users, timed over ``reps`` calls,
   recording the reference's ``serve.score`` span,

@@ -1,7 +1,8 @@
-"""Decoder-only LM of the port: the dense part of the reference's
-``models/transformer.py`` (GQA, RoPE, SwiGLU/GeGLU, RMSNorm with the gemma
-``1+γ`` form, sliding-window layers, alternating local/global layers,
-attention and final logit soft-capping, tied embeddings).
+"""Decoder-only LM of the port: the reference's ``models/transformer.py``
+(GQA, RoPE, SwiGLU/GeGLU, RMSNorm with the gemma ``1+γ`` form,
+sliding-window layers, alternating local/global layers, attention and
+final logit soft-capping, tied embeddings, MoE layers with TOCAB-binned
+dispatch for Granite and Mixtral).
 
 Entry points: :func:`init_params`, :func:`forward`, :func:`serve_prefill`,
 :func:`init_cache`, :func:`serve_decode`.  Parameters are a dict of
@@ -15,10 +16,13 @@ Dtypes follow the reference: fp32 master weights, cast to
 ``compute_dtype`` at use; fp32 RMSNorm, RoPE and unembed; a bf16 cache by
 default.  :func:`cast_params` makes a ``compute_dtype`` copy of the
 matmul weights once at load (the same values as a cast at every use); the
-serving loop runs on it.
+serving loop runs on it.  The MoE router stays fp32, as the reference runs
+it.
 
-Mixture-of-experts layers (``num_experts > 0``) are not ported yet and
-raise ``NotImplementedError`` (ROADMAP A11, its MoE part).
+A mixture-of-experts layer (``num_experts > 0``) holds a ``"moe"`` subtree
+(:mod:`.moe`) in place of ``"mlp"``; :func:`forward` returns the sum of its
+layers' Switch aux losses, and :func:`serve_decode` dispatches globally, as
+the reference's decode does.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from .layers import (AttnCfg, _normal, attention_block,
                      decode_attention_block, init_attention, init_mlp,
                      mlp_block, rms_norm)
+from .moe import MoECfg, init_moe, moe_block
 
 __all__ = ["TransformerCfg", "KVCache", "init_params", "cast_params",
            "params_from_numpy", "forward", "serve_prefill", "serve_decode",
@@ -54,8 +59,7 @@ class TransformerCfg:
     ``remat_policy`` and ``use_scan`` are accepted and change nothing:
     they steer JAX's rematerialisation and ``lax.scan`` over layers, and
     the port runs eagerly, one layer after the other, with no backward
-    pass yet.  ``moe_aux_coef``, ``capacity_factor`` and ``moe_dispatch``
-    wait for the MoE layers."""
+    pass yet.  ``moe_aux_coef`` waits for the training loss."""
     name: str
     n_layers: int
     d_model: int
@@ -116,6 +120,14 @@ class TransformerCfg:
         model are local (windowed), the odd ones global."""
         return not (self.pair_scan and i % 2)
 
+    def moe_cfg(self) -> MoECfg:
+        return MoECfg(
+            d_model=self.d_model, d_ff=self.d_ff,
+            num_experts=self.num_experts, top_k=self.top_k,
+            capacity_factor=self.capacity_factor, kind=self.mlp_kind,
+            dispatch=self.moe_dispatch,
+        )
+
     def param_count(self) -> int:
         d, f, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         attn = d * self.head_dim * (self.n_heads * 2 + self.n_kv_heads * 2)
@@ -124,12 +136,19 @@ class TransformerCfg:
         ffn += d * self.num_experts if self.is_moe else 0
         return L * (attn + ffn + 2 * d) + V * d + d
 
+    def active_param_count(self) -> int:
+        """Parameters a token meets: ``top_k`` experts of each MoE layer
+        (and its router), the rest as :meth:`param_count`."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        gates = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+        attn = d * self.head_dim * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ffn = gates * d * f * self.top_k + d * self.num_experts
+        return L * (attn + ffn + 2 * d) + self.vocab * d + d
 
-def _require_dense(cfg: TransformerCfg):
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (num_experts="
-            f"{cfg.num_experts}) are not ported yet (ROADMAP A11, MoE part)")
+
+def _check_layers(cfg: TransformerCfg):
     if cfg.pair_scan and cfg.n_layers % 2:
         raise ValueError("an alternating model needs an even layer count")
 
@@ -142,13 +161,21 @@ def _norm_weight(cfg: TransformerCfg, device) -> Tensor:
     return fill(cfg.d_model, dtype=torch.float32, device=device)
 
 
+def _init_ffn(generator: torch.Generator, cfg: TransformerCfg,
+              device) -> dict:
+    if cfg.is_moe:
+        return {"moe": init_moe(generator, cfg.moe_cfg(), device)}
+    return {"mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                            device)}
+
+
 def init_params(cfg: TransformerCfg, generator: torch.Generator,
                 device=None) -> dict:
     """Random fp32 parameters drawn from ``generator`` (on its own device,
     then moved to ``device``, the card by default), scaled as the
     reference's ``init_params``.  The numbers differ from the reference's
     (another generator); :func:`params_from_numpy` carries those over."""
-    _require_dense(cfg)
+    _check_layers(cfg)
     device = default_device() if device is None else torch.device(device)
     layers = []
     for _ in range(cfg.n_layers):
@@ -157,8 +184,7 @@ def init_params(cfg: TransformerCfg, generator: torch.Generator,
             "ln_mlp": _norm_weight(cfg, device),
             "attn": init_attention(generator, cfg.attn_cfg(local=True),
                                    device),
-            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                            device),
+            **_init_ffn(generator, cfg, device),
         })
     params = {
         "embed": _normal((cfg.vocab, cfg.d_model), generator, device)
@@ -176,7 +202,7 @@ def params_from_numpy(tree: dict, cfg: TransformerCfg, device=None) -> dict:
     """The reference's ``init_params`` tree, as numpy arrays (layers stacked
     on a leading axis; ``alternating`` layers restacked ``(L/2, 2, …)``),
     as the port's parameters on ``device`` (the card by default)."""
-    _require_dense(cfg)
+    _check_layers(cfg)
     device = default_device() if device is None else torch.device(device)
 
     def tensor(a):
@@ -187,11 +213,12 @@ def params_from_numpy(tree: dict, cfg: TransformerCfg, device=None) -> dict:
             a = np.asarray(a)
             return a[i // 2, i % 2] if cfg.pair_scan else a[i]
         lay = tree["layers"]
+        ffn = "moe" if cfg.is_moe else "mlp"
         return {
             "ln_attn": tensor(pick(lay["ln_attn"])),
             "ln_mlp": tensor(pick(lay["ln_mlp"])),
             "attn": {n: tensor(pick(w)) for n, w in lay["attn"].items()},
-            "mlp": {n: tensor(pick(w)) for n, w in lay["mlp"].items()},
+            ffn: {n: tensor(pick(w)) for n, w in lay[ffn].items()},
         }
 
     params = {"embed": tensor(tree["embed"]),
@@ -230,12 +257,21 @@ def param_count(params: dict) -> int:
 # --------------------------------------------------------------------- #
 # forward (prefill)
 # --------------------------------------------------------------------- #
+def _ffn(p, h, cfg: TransformerCfg):
+    """The layer's MLP or MoE block on ``h`` → (out, aux)."""
+    if cfg.is_moe:
+        return moe_block(p["moe"], h, cfg.moe_cfg())
+    return mlp_block(p["mlp"], h, cfg.mlp_kind), None
+
+
 def _layer_apply(p, x, positions, cfg: TransformerCfg, local: bool):
+    """One layer → (x, the layer's aux loss or None for a dense layer)."""
     acfg = cfg.attn_cfg(local)
     h = rms_norm(x, p["ln_attn"], plus_one=cfg.norm_plus_one)
     x = x + attention_block(p["attn"], h, positions, acfg)
     h = rms_norm(x, p["ln_mlp"], plus_one=cfg.norm_plus_one)
-    return x + mlp_block(p["mlp"], h, cfg.mlp_kind)
+    y, aux = _ffn(p, h, cfg)
+    return x + y, aux
 
 
 def _embed(params, tokens, cfg: TransformerCfg):
@@ -254,21 +290,26 @@ def _unembed(params, x, cfg: TransformerCfg):
 
 
 def _hidden(params, tokens, cfg: TransformerCfg):
-    _require_dense(cfg)
+    """→ (final normed hidden states, summed aux loss fp32)."""
+    _check_layers(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(params, tokens, cfg)
+    aux = torch.zeros((), device=x.device)
     for i, p in enumerate(params["layers"]):
-        x = _layer_apply(p, x, positions, cfg, cfg.layer_is_local(i))
-    return rms_norm(x, params["ln_final"], plus_one=cfg.norm_plus_one)
+        x, a = _layer_apply(p, x, positions, cfg, cfg.layer_is_local(i))
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, params["ln_final"], plus_one=cfg.norm_plus_one), aux
 
 
 def forward(params: dict, tokens: Tensor, cfg: TransformerCfg) -> tuple:
-    """tokens (B, S) → (logits (B, S, V) fp32, aux loss 0.0).  The
-    attention of every layer goes through the ``flash_attention`` kernel on
-    the card, through its plain version on the CPU."""
-    x = _hidden(params, tokens, cfg)
-    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+    """tokens (B, S) → (logits (B, S, V) fp32, the layers' summed MoE aux
+    loss, 0.0 for a dense model).  The attention of every layer goes
+    through the ``flash_attention`` kernel on the card, through its plain
+    version on the CPU."""
+    x, aux = _hidden(params, tokens, cfg)
+    return _unembed(params, x, cfg), aux
 
 
 def serve_prefill(params: dict, tokens: Tensor, cfg: TransformerCfg
@@ -276,7 +317,7 @@ def serve_prefill(params: dict, tokens: Tensor, cfg: TransformerCfg
     """Prefill: the full forward, returning last-position logits (B, V).
     Only the last position is unembedded (the same values as the
     reference's ``forward(...)[:, -1]``)."""
-    x = _hidden(params, tokens, cfg)
+    x, _ = _hidden(params, tokens, cfg)
     return _unembed(params, x[:, -1, :], cfg)
 
 
@@ -331,8 +372,10 @@ def serve_decode(params: dict, token: Tensor, pos: int, cache: KVCache,
     """One decode step.  token (B, 1) int; ``pos`` a Python int (the host
     loop's position).  Writes the step's K/V into ``cache`` in place and
     returns (logits (B, V) fp32, cache).  Every layer's attention goes
-    through the ``flash_decode`` kernel on the card."""
-    _require_dense(cfg)
+    through the ``flash_decode`` kernel on the card.  The reference's
+    decode dispatches MoE layers globally; on one card both dispatch modes
+    are the same single bin pass, so the config's mode is used as is."""
+    _check_layers(cfg)
     pos = int(pos)
     x = _embed(params, token, cfg)
     for i, p in enumerate(params["layers"]):
@@ -342,6 +385,6 @@ def serve_decode(params: dict, token: Tensor, pos: int, cache: KVCache,
         o, _, _ = decode_attention_block(p["attn"], h, pos, kc, vc, acfg)
         x = x + o
         h = rms_norm(x, p["ln_mlp"], plus_one=cfg.norm_plus_one)
-        x = x + mlp_block(p["mlp"], h, cfg.mlp_kind)
+        x = x + _ffn(p, h, cfg)[0]
     x = rms_norm(x, params["ln_final"], plus_one=cfg.norm_plus_one)
     return _unembed(params, x[:, 0, :], cfg), cache

@@ -32,6 +32,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.tune.__main__, repro_torch.tune.suite\n"
         "import repro_torch.core.cache_model, repro_torch.configs.graphcage\n"
         "import repro_torch.core.ablations\n"
+        "import repro_torch.models.moe, repro_torch.data.tokens\n"
+        "import repro_torch.configs.tinyllama_1_1b\n"
+        "import repro_torch.configs.gemma_7b, repro_torch.configs.gemma2_27b\n"
+        "import repro_torch.configs.granite_moe_3b_a800m\n"
+        "import repro_torch.configs.mixtral_8x22b\n"
+        "import repro_torch.configs.bert4rec\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

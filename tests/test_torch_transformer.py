@@ -1,5 +1,5 @@
-"""Port parity of the LM serving slice: layers, the dense transformer, its
-KV-cache decode and the serving loop (``repro_torch.models``,
+"""Port parity of the LM serving slices: layers, the transformer (dense
+and MoE), its KV-cache decode and the serving loop (``repro_torch.models``,
 ``repro_torch.launch.serve``), against the reference package.
 
 Both packages run on the same parameters: the reference's ``init_params``
@@ -160,17 +160,23 @@ def test_decode_refuses_window_shorter_than_cache():
 # --------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b"])
+MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x22b"]
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b", *MOE_ARCHS])
 def test_params_from_numpy_round_trip(arch):
     """Every leaf of the reference tree lands, unchanged, in the port's
-    per-layer form (alternating layers restacked (L/2, 2, …))."""
+    per-layer form (alternating layers restacked (L/2, 2, …); MoE layers
+    with a ``moe`` subtree in place of ``mlp``)."""
     rc, pc = _cfgs(arch)
     rp, pp = _params(rc, pc)
     for name in ("embed", "ln_final"):
         assert np.array_equal(pp[name].numpy(), np.asarray(rp[name]))
     assert len(pp["layers"]) == pc.n_layers
+    ffn = "moe" if pc.is_moe else "mlp"
     for i, layer in enumerate(pp["layers"]):
-        for group in ("attn", "mlp"):
+        assert set(layer) == {"ln_attn", "ln_mlp", "attn", ffn}
+        for group in ("attn", ffn):
             for n, w in layer[group].items():
                 ref = np.asarray(rp["layers"][group][n])
                 ref = ref[i // 2, i % 2] if pc.pair_scan else ref[i]
@@ -207,27 +213,35 @@ def test_init_params_shapes_and_cast():
 # --------------------------------------------------------------------- #
 # the model
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma-7b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma-7b", "gemma2-27b",
+                                  *MOE_ARCHS])
 def test_forward_matches_reference(arch):
+    """Logits and the summed MoE aux loss (0 for a dense model); the MoE
+    smoke configs at their capacity factor 1.25, drops included."""
     from repro.models import transformer as r_tfm
 
     rc, pc = _cfgs(arch)
     rp, pp = _params(rc, pc, seed=1)
     tokens = np.random.default_rng(2).integers(0, rc.vocab, (2, 24))
-    ref, _ = r_tfm.forward(rp, tokens.astype(np.int32), rc)
+    ref, r_aux = r_tfm.forward(rp, tokens.astype(np.int32), rc)
     out, aux = tfm.forward(pp, torch.from_numpy(tokens), pc)
     assert out.dtype == torch.float32 and out.shape == (2, 24, rc.vocab)
-    assert float(aux) == 0.0
+    if pc.is_moe:
+        assert float(aux) > 0.0
+        _close(aux, r_aux, rtol=1e-5, atol=0)
+    else:
+        assert float(aux) == float(r_aux) == 0.0
     _close(out, ref)
     last = tfm.serve_prefill(pp, torch.from_numpy(tokens), pc)
     _close(last, np.asarray(ref)[:, -1])
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b", *MOE_ARCHS])
 def test_serve_decode_matches_reference(arch):
     """Step by step: logits and caches equal the reference's on one
     fp32 cache (gemma2: a local ring of 16 and a global half, horizon 20,
-    so the local ring wraps)."""
+    so the local ring wraps; mixtral: a ring of 16 that wraps; the
+    reference's decode dispatches its MoE layers globally)."""
     import jax
     import jax.numpy as jnp
     from repro.models import transformer as r_tfm
@@ -274,7 +288,8 @@ def test_prefill_matches_decode_on_wrapping_ring():
     _close(full, ref)
 
 
-def test_serve_loop_greedy_tokens_match_reference():
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", *MOE_ARCHS])
+def test_serve_loop_greedy_tokens_match_reference(arch):
     """The port's serving loop emits the reference's greedy tokens: the
     same loop (prefill by decode steps, then argmax) over the reference's
     serve_decode, fp32 caches."""
@@ -282,7 +297,7 @@ def test_serve_loop_greedy_tokens_match_reference():
     import jax.numpy as jnp
     from repro.models import transformer as r_tfm
 
-    rc, pc = _cfgs("tinyllama-1.1b")
+    rc, pc = _cfgs(arch)
     rp, pp = _params(rc, pc, seed=7)
     B, P, new = 3, 6, 8
     prompts = np.random.default_rng(8).integers(0, rc.vocab, (B, P))
@@ -320,13 +335,76 @@ def test_serve_cli_records_metrics():
     assert {"serve.prefill", "serve.decode"} <= spans
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_cli_moe_archs(arch):
+    """The CLI serves the MoE smoke configs on the CPU, with no new flag."""
+    res = serve_mod.main(["--arch", arch, "--device", "cpu", "--requests",
+                          "2", "--prompt-len", "4", "--max-new", "3"])
+    assert res.tokens.shape == (2, 3) and res.decode_steps == 6
+
+
 def test_moe_and_later_families_raise():
-    rc, pc = _cfgs("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfm.init_params(pc, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfm.forward({}, torch.zeros(1, 2, dtype=torch.long), pc)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("gat-cora")
+    """The MoE archs build and run since their layers are ported (their
+    own init: the reference's shapes, ``param_count`` equal); the GNN archs
+    still raise, naming the slice that ports them."""
+    for arch in MOE_ARCHS:
+        pc = dataclasses.replace(get_arch(arch).make_smoke_cfg(),
+                                 compute_dtype="bfloat16")
+        pp = tfm.init_params(pc, torch.Generator().manual_seed(0),
+                             device="cpu")
+        assert tfm.param_count(pp) == pc.param_count()
+        moe = pp["layers"][0]["moe"]
+        assert moe["router"].shape == (pc.d_model, pc.num_experts)
+        assert moe["w_up"].shape == (pc.num_experts, pc.d_model, pc.d_ff)
+        cast = tfm.cast_params(pp, pc)
+        assert cast["layers"][0]["moe"]["w_gate"].dtype == torch.bfloat16
+        assert cast["layers"][0]["moe"]["router"].dtype == torch.float32
+        logits, aux = tfm.forward(cast, torch.zeros(1, 3, dtype=torch.long),
+                                  pc)
+        assert logits.shape == (1, 3, pc.vocab) and bool(
+            logits.isfinite().all()) and float(aux) > 0.0
+    for arch in ("gat-cora", "gin-tu", "dimenet", "graphsage-reddit"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+def test_moe_prefill_matches_decode():
+    """The reference's test_lm_prefill_matches_decode setting: Mixtral
+    smoke, window 8 (the ring wraps twice over 24 tokens), fp32, capacity
+    factor 8 so that the prefill drops no pair; the reference's decode
+    dispatches globally.  Then the forward against the reference's."""
+    from repro.models import transformer as r_tfm
+
+    rc, pc = _cfgs("mixtral-8x22b", window=8, capacity_factor=8.0)
+    rp, pp = _params(rc, pc, seed=9)
+    S = 24
+    tokens = torch.from_numpy(
+        np.random.default_rng(10).integers(0, rc.vocab, (1, S)))
+    full, _ = tfm.forward(pp, tokens, pc)
+    cache = tfm.init_cache(pc, 1, horizon=S, dtype=torch.float32,
+                           device="cpu")
+    steps = []
+    for t in range(S):
+        lg, cache = tfm.serve_decode(pp, tokens[:, t:t + 1], t, cache, pc)
+        steps.append(lg)
+    torch.testing.assert_close(torch.stack(steps, dim=1), full, rtol=1e-3,
+                               atol=1e-4)
+    ref, _ = r_tfm.forward(rp, tokens.numpy().astype(np.int32), rc)
+    _close(full, ref)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", *MOE_ARCHS])
+@pytest.mark.parametrize("full", [False, True], ids=["smoke", "published"])
+def test_active_param_count_matches_reference(arch, full):
+    from repro.configs import get_arch as r_get_arch
+
+    spec, r_spec = get_arch(arch), r_get_arch(arch)
+    pc = spec.make_model_cfg() if full else spec.make_smoke_cfg()
+    rc = r_spec.make_model_cfg() if full else r_spec.make_smoke_cfg()
+    assert pc.active_param_count() == rc.active_param_count()
+    assert pc.param_count() == rc.param_count()
+    assert (pc.active_param_count() < pc.param_count()) == pc.is_moe
+    if full and arch == "granite-moe-3b-a800m":
+        assert pc.param_count() == 3_298_793_472
