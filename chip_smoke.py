@@ -39,7 +39,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    one launch a call; ``flash_attention`` at the
    8 × 2048 prefill in fp32 (FMA) and bf16 (tensor cores), ``flash_decode``
    in fp32 at a 32768-slot cache.  fp32 at rtol = atol = 2e-5, bf16 at one
-   bf16 ulp relative plus two of the mean |entry|.
+   bf16 ulp relative plus two of the mean |entry|.  Then the attention
+   gradient: ``flash_attention_bwd`` through ``attention``'s autograd path
+   against torch autograd of ``attention_ref`` (fp32, on the same values)
+   at TinyLlama's training shape (bf16, 8 × 32/4 heads × 512 × 64,
+   causal), a Gemma-2-27B local layer (bf16, 1 × 32/16 heads × 4608 × 128,
+   window 4096, softcap 50, the scores spread over the cap's range) and a
+   smoke shape (fp32, D 16, bidirectional): max |error| of dq, dk and dv
+   over their largest magnitude, at most 2⁻⁷ (bf16) and 1e-4 (fp32); a
+   gradient without the softcap's tanh derivative must fail the Gemma
+   case; a repeat is bit-equal; then the kernel timed at the TinyLlama
+   shape beside its bound (2.5× the forward's flops), autograd of the
+   plain version and SDPA's backward (forward + backward minus forward).
 4. Main path: a Graph500 Kronecker graph (``rmat_graph(24, 16, seed=1,
    weights=True)``: 16.8 M vertices, ranks larger than the 50 MB L2) →
    ``build_blocked`` pull and push on the card, with per-graph
@@ -180,8 +191,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    seconds, the decode step's byte bound, one decode step's and one
    prefill's device time by op from ``torch.profiler``); the ``kernels``
    record's rows 4-5 gain each arch's launches (``moe``).
+13. Training, after phase 12 (``repro_torch.train``, ``launch/train.py``,
+   ``models/gnn.py``).  (a) TinyLlama-1.1B at its published config (fp32
+   params, bf16 compute), AdamW with the cosine schedule, batch 8 × 512:
+   step 0's gradient has every leaf finite and non-zero, and its loss and
+   gradient norm agree with the same step on ``backend="torch"`` attention
+   (2e-3 and 2e-2 relative); one step profiled (device idle share); then
+   ``launch.train.main`` for 12 steps, all losses finite,
+   ``flash_attention``, ``flash_attention_wgmma`` and
+   ``flash_attention_bwd`` each launched exactly 22 times a step (step ms
+   the median of steps 2-11, tokens/s, peak memory).  (b) An exact resume
+   on the smoke TinyLlama: 6 steps against 4, a restore from ``LATEST``
+   and 2 more, losses and params bit-equal (under
+   ``torch.use_deterministic_algorithms``).  (c) GAT-Cora (d_in 1433, 8 ×
+   8 heads) for 100 steps on ``cora_like()`` through the TOCAB slab
+   engines (``build_blocked(g, block_size=512)``), its flat and TOCAB
+   forwards on the trained params within ``SUM_RTOL`` of the largest
+   logit; GIN-TU (5 × 64) on the same layout for 20 steps;
+   GraphSAGE-Reddit (602 → 128 → 41) on ``NeighborSampler`` batches of 512
+   seeds (25-10) over ``reddit_like()``, 20 steps; DimeNet (6 × 128) on
+   ``molecule_batch()``, 5 steps; no kernel launches, and ``fused_pull``
+   on an input that requires grad raises.  (d) BERT4Rec at 10⁶ items: one
+   sampled-softmax loss and backward on the card against the CPU (1e-4),
+   and ``binned_embedding_grad`` against the flat sum (``SUM_RTOL`` of each
+   row's sum of magnitudes).  The ``kernels`` record gains the
+   ``flash_attention_bwd`` row, its launches from (a)'s 12 steps.
    Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
-   phases 4, 6, 8, 9, 10(b), 11, 12(a) and 12(b) must end with no
+   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b) and 13 must end with no
    ``resilience.*`` counter moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
@@ -3317,6 +3353,681 @@ def add_moe_launches(records: list, lines: list):
             for ln in lines}
 
 
+# --------------------------------------------------------------------- #
+# phase 3 (backward): flash_attention_bwd vs autograd of the plain version
+# --------------------------------------------------------------------- #
+#: the attention gradient vs torch autograd of attention_ref in fp32 on the
+#: same values: max |error| of each of dq, dk, dv over its largest
+#: magnitude.  bf16: one bf16 ulp at 1.0 (the kernel's inputs, its forward
+#: output o, which delta = rowsum(dout ∘ o) reads, and its outputs are
+#: bf16; everything inside is fp32); fp32: 1e-4 (fp32 sums in another
+#: order, over up to 4608 keys)
+BWD_REL_OF_MAX = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+#: the backward kernel's source, and what it takes the place of: XLA's
+#: autodiff of attention_ref (the JAX package has no TPU backward kernel)
+BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+BWD_REPLACES = ("src/repro/kernels/flash_attention/ref.py:10 (XLA autodiff "
+                "of attention_ref; no TPU kernel)")
+
+
+def attention_ref_straight_cap(q, k, v, *, scale=None, causal=True,
+                               window=0, softcap=0.0):
+    """``attention_ref`` whose softcap passes the gradient straight through
+    (the tanh derivative dropped): a wrong gradient the check must
+    reject."""
+    import torch
+
+    B, Hq, Sq, D = q.shape
+    group = Hq // k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if softcap > 0.0:
+        s = s + (softcap * torch.tanh(s / softcap) - s).detach()
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((Sq, k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def attention_grads_plain(q, k, v, dout, ref_fn, **kw):
+    """fp32 (dq, dk, dv) of ``ref_fn`` by torch autograd on the values of
+    q, k, v and dout, one KV head's query group at a time (which bounds
+    the fp32 scores: GQA groups share nothing)."""
+    import torch
+
+    g = q.shape[1] // k.shape[1]
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=t.device)
+             for t in (q, k, v)]
+    for h in range(k.shape[1]):
+        qs, ks, vs = (t.detach().float().requires_grad_() for t in (
+            q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1]))
+        ref_fn(qs, ks, vs, **kw).backward(
+            dout[:, h * g:(h + 1) * g].float())
+        grads[0][:, h * g:(h + 1) * g] = qs.grad
+        grads[1][:, h:h + 1] = ks.grad
+        grads[2][:, h:h + 1] = vs.grad
+    return grads
+
+
+def rel_of_max(out, ref) -> tuple:
+    """(max |out - ref|, that over max |ref|), in fp32."""
+    err = float((out.float() - ref).abs().max())
+    return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def phase_attention_backward(seed: int, log) -> dict:
+    """``flash_attention_bwd`` through ``attention``'s autograd path against
+    torch autograd of ``attention_ref`` (fp32 oracle on the same values) at
+    three shapes: TinyLlama's training attention (bf16, 8 × 32/4 heads ×
+    512 × 64, causal), a Gemma-2-27B local layer (bf16, 1 × 32/16 heads ×
+    4608 × 128, window 4096, softcap 50, q scaled so the scores spread over
+    the cap's range) and a smoke shape (fp32, D 16, bidirectional); a
+    gradient without the softcap's tanh derivative must fail the Gemma
+    check; the TinyLlama case repeated bit-equal.  Then the kernel timed at
+    the TinyLlama shape beside its bound, autograd of the plain version and
+    SDPA's backward.  Returns the ``kernels`` row (launches filled in by
+    phase 13)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, dtype, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * mul).to(dtype)
+
+    cases = {  # name: (B, Hq, Hkv, S, D, dtype, kw, q scale)
+        "tinyllama": (8, 32, 4, 512, 64, torch.bfloat16,
+                      dict(causal=True), 1.0),
+        "gemma2_27b_local": (1, 32, 16, 4608, 128, torch.bfloat16,
+                             dict(causal=True, window=4096, softcap=50.0,
+                                  scale=(4608 / 32) ** -0.5), 16.0),
+        "smoke": (2, 4, 2, 100, 16, torch.float32,
+                  dict(causal=False), 1.0),
+    }
+    out_rec, keep = {}, {}
+    for name, (B, Hq, Hkv, S, D, dtype, kw, qmul) in cases.items():
+        q = rand(B, Hq, S, D, dtype=dtype, mul=qmul)
+        k, v = (rand(B, Hkv, S, D, dtype=dtype) for _ in range(2))
+        dout = rand(B, Hq, S, D, dtype=dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = cuda_build.launches["flash_attention_bwd"]
+        attention(*leaves, **kw).backward(dout)
+        torch.cuda.synchronize()
+        if cuda_build.launches["flash_attention_bwd"] != n0 + 1:
+            raise AssertionError(f"attention backward at {name}: not one "
+                                 "flash_attention_bwd launch")
+        ref = attention_grads_plain(q, k, v, dout, attention_ref, **kw)
+        limit = BWD_REL_OF_MAX[str(dtype)[6:]]
+        rec = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
+               "dtype": str(dtype)[6:],
+               "kw": {a: b for a, b in kw.items() if a != "scale"},
+               "limit_rel_of_max": limit}
+        for nm, got, r in zip(("dq", "dk", "dv"), leaves, ref):
+            if got.grad.dtype != dtype or not bool(
+                    got.grad.isfinite().all()):
+                raise AssertionError(f"{name} {nm}: dtype {got.grad.dtype} "
+                                     "or not finite")
+            err, rel = rel_of_max(got.grad, r)
+            rec[nm] = {"max_abs_err": err, "rel_of_max": rel}
+            log(f"flash_attention_bwd {name} {nm}: max_abs_err={err:.3g} "
+                f"rel_of_max={rel:.3g} limit={limit:.3g}")
+            if not rel <= limit:
+                raise AssertionError(f"flash_attention_bwd {name} {nm}: "
+                                     f"{rel:.3g} of max > {limit:.3g}")
+        if kw.get("softcap"):
+            # the same check against a gradient without the cap derivative
+            wrong = attention_grads_plain(q, k, v, dout,
+                                          attention_ref_straight_cap, **kw)
+            worst = max(rel_of_max(got.grad, r)[1]
+                        for got, r in zip(leaves, wrong))
+            rec["without_softcap_derivative_rel_of_max"] = worst
+            if not worst > limit:
+                raise AssertionError(
+                    f"{name}: a gradient without the softcap derivative "
+                    f"passes the check ({worst:.3g} ≤ {limit:.3g})")
+            del wrong
+        out_rec[name] = rec
+        if name == "tinyllama":
+            keep = dict(q=q, k=k, v=v, dout=dout, kw=kw, rec=rec)
+        del q, k, v, dout, leaves, ref
+        torch.cuda.empty_cache()
+
+    # the TinyLlama shape: repeats, then times
+    q, k, v, dout, kw = (keep[n] for n in ("q", "k", "v", "dout", "kw"))
+    out = flash_attention_cuda(q, k, v, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("flash_attention_bwd: repeats differ")
+    del first, again
+    ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, dout, **kw),
+                 reps=5, warmup=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        attention_ref(*leaves, **kw), leaves, dout), reps=2)
+    sdpa = dict(is_causal=True, enable_gqa=True)
+    lib_both = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, **sdpa), leaves, dout),
+        reps=10, warmup=2)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
+                      reps=10, warmup=2)
+    B, Hq, S, D = q.shape
+    fwd_flops = 4 * B * Hq * S * S * D / 2  # causal: half the scores
+    ops = 2.5 * fwd_flops
+    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+    ops_ms, bytes_ms = 1e3 * ops / BF16_OPS_PER_S, 1e3 * nbytes / \
+        HBM_BYTES_PER_S
+    tl = keep["rec"]
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": BWD_SOURCE, "replaces": BWD_REPLACES, "launches": 0,
+           "max_abs_err": max(tl[n]["max_abs_err"] for n in ("dq", "dk",
+                                                              "dv")),
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "library_ms": lib_both - lib_fwd,
+           "library": "scaled_dot_product_attention forward+backward minus "
+                      "forward",
+           "library_fwd_bwd_ms": lib_both, "library_fwd_ms": lib_fwd,
+           "plain": "torch.autograd.grad of attention_ref (its forward "
+                    "included)",
+           "rel_of_max": {n: tl[n]["rel_of_max"] for n in ("dq", "dk", "dv")},
+           "limit_rel_of_max": tl["limit_rel_of_max"],
+           "shape": tl["shape"], "tflops": ops / (ms * 1e-3) / 1e12,
+           "bound_share": max(ops_ms, bytes_ms) / ms}
+    emit({"phase": "attention_backward_vs_plain", "cases": out_rec,
+          "repeat": "bit-identical x2", "seconds": time.perf_counter() - t0})
+    del q, k, v, dout, out, leaves, keep
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------- #
+# phase 13: training
+# --------------------------------------------------------------------- #
+#: the training phase's LM: TinyLlama-1.1B's published config, trained at
+#: batch 8 × 512 for 12 steps (AdamW, cosine schedule), as launch.train runs it
+TRAIN_ARGV = ["--arch", LM_ARCH, "--full-config", "--batch", "8", "--seq",
+              "512", "--steps", "12", "--log-every", "1"]
+#: step 0 with the kernels vs with backend="torch" attention on the same
+#: params and batch (bf16 compute either way; only the attention differs):
+#: loss to 2e-3 relative, gradient global norm to 2e-2
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-3, 2e-2
+
+
+def device_idle_share(fn) -> dict:
+    """One ``fn()`` under ``torch.profiler``: the window from the first
+    event to the last (host and device), the device's busy time (the union
+    of its kernel and copy intervals) and the idle share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    return {"window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / max(hi - lo, 1e-9)}
+
+
+def phase_train_lm(seed: int, log) -> dict:
+    """(a) TinyLlama-1.1B at its published width through
+    ``repro_torch.launch.train``: step 0's gradient (kernels) checked leaf
+    by leaf and against ``backend="torch"`` attention, one step profiled,
+    then ``main`` for 12 steps with the launch counts set to 0 just before
+    it and read just after."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models import layers
+    from repro_torch.train.optim import adamw, cosine_schedule, global_norm
+    from repro_torch.train.trainer import _value_and_grad, make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_paths
+
+    t0 = time.perf_counter()
+    argv = TRAIN_ARGV + ["--seed", str(seed)]
+    args = launch.build_parser().parse_args(argv)
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    params, loss_fn, batches = launch._lm_setup(cfg, args)
+    batch = next(batches)
+
+    # step 0's gradient with the kernels: every leaf finite and non-zero
+    cuda_build.reset_launches()
+    loss0, _, grads = _value_and_grad(loss_fn, params, batch)
+    checked = dict(cuda_build.launches)
+    if checked.get("flash_attention_bwd", 0) != cfg.n_layers:
+        raise AssertionError(f"step 0's gradient launched {checked}; want "
+                             f"flash_attention_bwd = {cfg.n_layers}")
+    bad = [p for p, g in zip(tree_paths(grads), tree_leaves(grads))
+           if not bool(g.isfinite().all()) or not bool((g != 0).any())]
+    if bad or not bool(loss0.isfinite()):
+        raise AssertionError(f"step 0: loss {float(loss0)}; leaves without "
+                             f"a finite non-zero gradient: {bad[:8]}")
+    gnorm0 = float(global_norm(grads))
+    n_leaves = len(tree_leaves(grads))
+    del grads
+    # the oracle: the same step with the plain attention (backend="torch";
+    # attention_block passes its own backend=None, which this overrides)
+    def plain(*a, backend=None, **kw):
+        return attn_ops.attention(*a, backend="torch", **kw)
+
+    saved, layers.attn_op = layers.attn_op, plain
+    cuda_build.reset_launches()
+    try:
+        loss_t, _, grads_t = _value_and_grad(loss_fn, params, batch)
+        gnorm_t = float(global_norm(grads_t))
+    finally:
+        layers.attn_op = saved
+    if sum(cuda_build.launches.values()):
+        raise AssertionError(f"the plain-attention oracle launched "
+                             f"{dict(cuda_build.launches)}")
+    del grads_t
+    torch.cuda.empty_cache()
+    loss_rel = abs(float(loss0) - float(loss_t)) / abs(float(loss_t))
+    gnorm_rel = abs(gnorm0 - gnorm_t) / gnorm_t
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
+        raise AssertionError(f"step 0 kernels vs plain attention: loss "
+                             f"{float(loss0)} vs {float(loss_t)}, grad norm "
+                             f"{gnorm0} vs {gnorm_t}")
+
+    # one full step (forward, backward, AdamW) profiled after one warm-up
+    opt = adamw(cosine_schedule(args.lr, 20, args.steps))
+    step = make_train_step(loss_fn, opt)
+    state = opt.init(params)
+    p1, s1, _ = step(params, state, batch)
+    del p1, s1
+    torch.cuda.synchronize()
+    profile = device_idle_share(lambda: step(params, state, batch))
+    del params, state, batch, batches, step
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+
+    # the main path: launch.train.main, 12 steps
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    cuda_build.reset_launches()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        hist = launch.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = dict(cuda_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log("--- launch.train ---\n" + buf.getvalue())
+    losses = [h["loss"] for h in hist]
+    steps = args.steps
+    want = cfg.n_layers * steps
+    if [h["step"] for h in hist] != list(range(steps)) or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses: {losses}")
+    if abs(losses[0] - float(loss0)) > 1e-5 * abs(float(loss0)):
+        raise AssertionError(f"main's step 0 loss {losses[0]} is not the "
+                             f"checked step's {float(loss0)}")
+    if launches.get("flash_attention_bwd", 0) != want \
+            or launches.get("flash_attention", 0) != want \
+            or launches.get("flash_attention_wgmma", 0) != want:
+        raise AssertionError(f"training launched {launches}; want "
+                             f"flash_attention = flash_attention_wgmma = "
+                             f"flash_attention_bwd = {want}")
+    dts = sorted(h["dt"] for h in hist[2:])
+    step_ms = 1e3 * dts[len(dts) // 2]
+    tokens = args.batch * args.seq
+    line = {"phase": "train_lm", "arch": LM_ARCH,
+            "params": cfg.param_count(), "batch": args.batch,
+            "seq": args.seq, "steps": steps,
+            "losses": losses, "step0": {
+                "loss": float(loss0), "loss_plain_attention": float(loss_t),
+                "loss_rel": loss_rel, "grad_norm": gnorm0,
+                "grad_norm_plain_attention": gnorm_t,
+                "grad_norm_rel": gnorm_rel,
+                "leaves_with_finite_nonzero_grad": n_leaves},
+            "step_ms_median_2_11": step_ms,
+            "step_ms_all": [1e3 * h["dt"] for h in hist],
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_memory_gb": peak / 1e9,
+            "one_step_profile": profile,
+            "launches": launches, "setup_seconds": setup_s,
+            "run_seconds": run_s}
+    emit(line)
+    return line
+
+
+def phase_train_resume(seed: int, log) -> dict:
+    """(b) Exact resume on the card, the smoke TinyLlama (bf16 compute):
+    6 uninterrupted steps against 4, a restore from ``LATEST`` in a fresh
+    ``Trainer`` and 2 more; losses and final params bit-equal.  Under
+    ``torch.use_deterministic_algorithms`` (the embedding's and the loss
+    gather's backward add with atomics otherwise); the ops it warns about
+    are recorded."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH).make_smoke_cfg()
+    opt = adamw(cosine_schedule(3e-3, 2, 6))
+
+    def loss_fn(p, b):
+        return tfm.loss_fn(p, b, cfg)
+
+    def stream(skip=0):
+        it = synthetic_lm_batches(8, 64, cfg.vocab, seed=seed, device=dev)
+        for _ in range(skip):
+            next(it)
+        return it
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tfm.init_params(cfg, gen, dev)
+
+    quiet = dict(log_every=1, log_fn=lambda *_: None)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            whole = Trainer(loss_fn=loss_fn, optimizer=opt)
+            p, s = whole.init_state(fresh())
+            p6, _, h6 = whole.run(p, s, stream(), num_steps=6, **quiet)
+            with tempfile.TemporaryDirectory() as d:
+                first = Trainer(loss_fn=loss_fn, optimizer=opt, ckpt_dir=d)
+                p, s = first.init_state(fresh())
+                _, _, h4 = first.run(p, s, stream(), num_steps=4, **quiet)
+                second = Trainer(loss_fn=loss_fn, optimizer=opt, ckpt_dir=d)
+                p, s = second.init_state(fresh())
+                p, s, start = second.maybe_restore(p, s)
+                if start != 4:
+                    raise AssertionError(f"restored step {start}, want 4")
+                pr, _, h2 = second.run(p, s, stream(4), start_step=4,
+                                       num_steps=6, **quiet)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0][:120]
+                     for w in caught if "deterministic" in str(w.message)})
+    l6 = [h["loss"] for h in h6]
+    lr = [h["loss"] for h in h4 + h2]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p6),
+                                                 tree_leaves(pr)))
+    rec = {"phase": "train_resume", "arch": LM_ARCH + " (smoke)",
+           "losses_whole": l6, "losses_resumed": lr,
+           "losses_bit_equal": l6 == lr, "params_bit_equal": same,
+           "nondeterministic_ops_warned": nondet,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if l6 != lr or not same:
+        raise AssertionError(f"resume is not bit-exact: {rec}")
+    return rec
+
+
+def phase_train_gnn(seed: int, log) -> dict:
+    """(c) The four GNNs at their published widths, random weights from
+    ``seed``, AdamW: GAT-Cora on ``cora_like()`` for 100 steps through the
+    TOCAB slab engines (``build_blocked(g, block_size=512)``), then its
+    flat and TOCAB forwards on the trained params; GraphSAGE-Reddit on
+    ``NeighborSampler`` batches of 512 seeds (fanout 25-10) over
+    ``reddit_like()``, 20 steps; GIN-TU on the same cora graph with the
+    layout (``tocab_pull``'s gradient), 20 steps; DimeNet on
+    ``molecule_batch()``, 5 steps.  No port kernel launches here (the slab
+    engines are torch ops); a fused kernel asked for a gradient raises."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import build_blocked
+    from repro_torch.data.graphs import cora_like, molecule_batch, reddit_like
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.tocab_fused import fused_pull
+    from repro_torch.models.gnn import gnn_forward, gnn_loss_fn, init_gnn
+    from repro_torch.train.optim import adamw, constant_schedule
+    from repro_torch.train.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lines = []
+    cuda_build.reset_launches()
+
+    def train(arch, cfg, batches, steps, bg=None, lr=5e-3):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_gnn(gen, cfg, dev)
+        opt = adamw(constant_schedule(lr))
+        step = make_train_step(
+            lambda p, b: gnn_loss_fn(p, b, cfg, bg=bg), opt)
+        state = opt.init(params)
+        losses, metric, dts = [], [], []
+        for _ in range(steps):
+            batch = next(batches)
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            metric.append(float(m.get("acc", m.get("mse"))))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch}: losses {losses}")
+        dts = sorted(dts[1:])
+        line = {"phase": "train_gnn", "arch": arch,
+                "config": dataclasses.asdict(cfg), "steps": steps,
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "acc_or_mse_last": metric[-1],
+                "step_ms_median": 1e3 * dts[len(dts) // 2]}
+        lines.append(line)
+        return params, line
+
+    def repeat(batch):
+        while True:
+            yield batch
+
+    # GAT-Cora through the TOCAB slab engines, as examples/gnn_cora.py
+    cfg = get_arch("gat-cora").make_model_cfg()
+    g, cora = cora_like(seed=seed, device=dev)
+    bg = build_blocked(g, block_size=512, device=dev)
+    params, line = train("gat-cora", cfg, repeat(cora), 100, bg=bg)
+    with torch.no_grad():
+        flat = gnn_forward(params, cora, cfg, bg=None)
+        toc = gnn_forward(params, cora, cfg, bg=bg)
+    err, rel = rel_of_max(toc, flat)
+    acc = float((flat.argmax(-1) == cora.labels.long()).float().mean())
+    line.update(nodes=g.n, edges=g.m, blocks=bg.num_blocks,
+                flat_vs_tocab_max_abs_err=err, flat_vs_tocab_rel_of_max=rel,
+                train_accuracy=acc)
+    if not rel <= SUM_RTOL:
+        raise AssertionError(f"gat-cora: flat vs TOCAB forward {rel:.3g} "
+                             f"of max > {SUM_RTOL}")
+    # a fused kernel refuses a gradient it could not give
+    x = cora.node_feat[:, :8].clone().requires_grad_()
+    try:
+        fused_pull(bg, x)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        line["fused_pull_under_grad"] = "raises: " + str(e)[:100]
+    else:
+        raise AssertionError("fused_pull took an input that requires grad")
+    # GIN-TU on the same graph, aggregating with tocab_pull
+    train("gin-tu", get_arch("gin-tu").make_model_cfg(), repeat(cora), 20,
+          bg=bg)
+    del bg, cora, params, flat, toc, x
+    # GraphSAGE-Reddit on sampled batches of 512 seeds
+    cfg = get_arch("graphsage-reddit").make_model_cfg()
+    g, host = reddit_like(seed=seed, device="cpu")
+    sampler = NeighborSampler(g, host.node_feat.numpy(),
+                              host.labels.numpy(), cfg.sample_sizes,
+                              seed=seed, device=dev)
+
+    def sampled():
+        while True:
+            yield sampler.sample(512)
+
+    _, line = train("graphsage-reddit", cfg, sampled(), 20)
+    line.update(graph_nodes=g.n, graph_edges=g.m, seeds_per_batch=512,
+                local_nodes=NeighborSampler.batch_shapes(
+                    512, cfg.sample_sizes, cfg.d_in)[0])
+    # DimeNet on batched molecules
+    cfg = get_arch("dimenet").make_model_cfg()
+    t = time.perf_counter()
+    mol = molecule_batch(seed=seed, device=dev)
+    build_s = time.perf_counter() - t
+    _, line = train("dimenet", cfg, repeat(mol), 5, lr=1e-3)
+    line.update(graphs=int(mol.labels.shape[0]), nodes=mol.n,
+                edges=int(mol.edge_src.shape[0]),
+                triplets=int(mol.t_mask.sum()), batch_build_seconds=build_s)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launches)
+    if sum(launches.values()):
+        raise AssertionError(f"GNN training launched {launches}; the slab "
+                             "engines launch no kernel")
+    for ln in lines:
+        emit(ln)
+    return {"lines": lines, "seconds": time.perf_counter() - t0}
+
+
+def phase_train_bert4rec(seed: int, log) -> dict:
+    """(d) BERT4Rec at its published 10⁶-item config: one loss and backward
+    of the sampled-softmax branch on the card (a batch built as
+    tests/test_models.py builds one: random items, masked positions,
+    labels and shared negatives), against the same on the CPU; then
+    ``binned_embedding_grad`` against the flat sum."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bert4rec as b4
+    from repro_torch.train.trainer import _value_and_grad
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_arch("bert4rec").make_model_cfg()
+    if not cfg.sampled_softmax:
+        raise AssertionError("bert4rec's published config should take the "
+                             "sampled softmax")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = b4.init_bert4rec(cfg, gen, dev)
+    rng = np.random.default_rng(seed)
+    B, L, M, K = 4, cfg.max_len, cfg.max_masked, cfg.num_negatives
+    host = {
+        "items": rng.integers(0, cfg.vocab, (B, L)).astype(np.int32),
+        "mask_pos": rng.integers(0, L, (B, M)).astype(np.int32),
+        "pos_labels": rng.integers(0, cfg.vocab, (B, M)).astype(np.int32),
+        "pos_weight": np.ones((B, M), np.float32),
+        "negatives": rng.integers(0, cfg.vocab, (K,)).astype(np.int32),
+    }
+
+    def loss_fn(p, b):
+        return b4.bert4rec_loss_fn(p, b, cfg)
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    loss, _, grads = _value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    cpu_loss, _, cpu_grads = _value_and_grad(
+        loss_fn, {k: ([{n: t.cpu() for n, t in blk.items()} for blk in v]
+                      if k == "blocks" else v.cpu())
+                  for k, v in params.items()},
+        {k: torch.from_numpy(v) for k, v in host.items()})
+    emb = grads["item_emb"]
+    if not (bool(loss.isfinite()) and bool(emb.isfinite().all())
+            and bool((emb != 0).any())):
+        raise AssertionError("bert4rec: loss or item_emb gradient not finite "
+                             "or all zero")
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    emb_err, emb_rel = rel_of_max(emb.cpu(), cpu_grads["item_emb"])
+    if not (loss_rel <= B4_RTOL and emb_rel <= B4_RTOL):
+        raise AssertionError(f"bert4rec card vs CPU: loss {loss_rel:.3g}, "
+                             f"item_emb grad {emb_rel:.3g} of max")
+    # binned_embedding_grad of the encoder-shaped gradients of these items
+    g = torch.randn((B, L, cfg.d_model), generator=gen, device=dev)
+    ids = batch["items"]
+    binned = b4.binned_embedding_grad(ids, g, cfg.table_size)
+    flat = torch.zeros_like(binned).index_add_(
+        0, ids.reshape(-1).long(), g.reshape(-1, cfg.d_model))
+    mag = torch.zeros_like(binned).index_add_(
+        0, ids.reshape(-1).long(), g.reshape(-1, cfg.d_model).abs())
+    diff = (binned - flat).abs()
+    share = float((diff / (SUM_RTOL * mag + 1e-30)).max())
+    rec = {"phase": "train_bert4rec", "vocab": cfg.vocab,
+           "batch": {"users": B, "max_len": L, "masked": M, "negatives": K},
+           "loss": float(loss), "loss_rel_vs_cpu": loss_rel,
+           "item_emb_grad_rel_of_max_vs_cpu": emb_rel,
+           "item_emb_rows_touched": int((emb != 0).any(-1).sum()),
+           "binned_vs_flat_max_abs_err": float(diff.max()),
+           "binned_vs_flat_tolerance_used": share,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not share <= 1.0:
+        raise AssertionError(f"binned_embedding_grad vs flat: {share:.3g}× "
+                             "SUM_RTOL of the rows' magnitudes")
+    return rec
+
+
+def phase_training(seed: int, log, bwd_row: dict) -> dict:
+    """Phase 13: (a) TinyLlama-1.1B training at full width, (b) an exact
+    resume, (c) the four GNNs, (d) BERT4Rec's sampled softmax.  Fills the
+    ``flash_attention_bwd`` row's ``launches`` from (a)'s main path."""
+    import torch
+
+    t0 = time.perf_counter()
+    lm = phase_train_lm(seed, log)
+    torch.cuda.empty_cache()
+    bwd_row["launches"] = lm["launches"].get("flash_attention_bwd", 0)
+    bwd_row["train"] = {"step_ms": lm["step_ms_median_2_11"],
+                        "tokens_per_s": lm["tokens_per_s"],
+                        "peak_memory_gb": lm["peak_memory_gb"]}
+    phase_train_resume(seed, log)
+    torch.cuda.empty_cache()
+    phase_train_gnn(seed, log)
+    torch.cuda.empty_cache()
+    phase_train_bert4rec(seed, log)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    emit({"phase": "training_seconds", "seconds": secs})
+    return {"lm": lm, "seconds": secs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -3386,6 +4097,7 @@ def main(argv=None) -> int:
     phase_kernels(SEED, log)
     phase_spmm_kernel(SEED, log)
     phase_attention_kernels(SEED, log)
+    bwd_row = phase_attention_backward(SEED, log)
     main_state = phase_main(SCALE, SEED, log)
     quiet = check_quiet("phase 4", quiet)
     records = phase_timing(main_state, log, floors, previous)
@@ -3422,6 +4134,12 @@ def main(argv=None) -> int:
     check_quiet("phase 12(b)", quiet)
     add_moe_launches(records, [granite["line"], mixtral["line"]])
     emit({"phase": "moe_seconds", "seconds": time.perf_counter() - t_moe})
+    del granite, mixtral
+    torch.cuda.empty_cache()
+    quiet = resilience_total()
+    phase_training(SEED, log, bwd_row)
+    check_quiet("phase 13", quiet)
+    records.append(bwd_row)
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["SOURCES", "BACKENDS", "build", "load", "check_launch",
-           "check_tensor", "pick_backend", "launches", "reset_launches"]
+           "check_tensor", "pick_backend", "refuse_grad", "launches",
+           "reset_launches"]
 
 _KERNELS = Path(__file__).resolve().parent
 
@@ -38,6 +39,7 @@ SOURCES = {
     "tocab_spmm": "tocab_spmm/csrc/tocab_spmm.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "flash_decode": "flash_attention/csrc/flash_decode.cu",
     "embedding_bag": "embedding_bag/csrc/embedding_bag.cu",
 }
@@ -150,6 +152,20 @@ def check_tensor(t: torch.Tensor, what: str, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def refuse_grad(name: str, tensors: Iterable[Optional[torch.Tensor]],
+                instead: str):
+    """Raise if autograd would record a launch of kernel ``name`` on
+    ``tensors``: grad mode is on and one of them requires grad.  A ctypes
+    launch returns a tensor with no ``grad_fn``, so a loss built on it
+    would backpropagate without error and give its inputs no gradient.
+    ``instead`` names the differentiable path."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad (its gradient would be dropped); {instead}")
 
 
 def pick_backend(t: torch.Tensor, backend: Optional[str]) -> str:

@@ -69,6 +69,10 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"embedding_bag: table must be (V, d) and ids "
                          f"(B, L), got {tuple(table.shape)} and "
                          f"{tuple(indices.shape)}")
+    cuda_build.refuse_grad(
+        "embedding_bag", (table, weights),
+        "use backend='torch' (gathers, which autograd differentiates), as "
+        "BERT4Rec's training loss does")
     dev = table.device
     (V, d), (B, L) = table.shape, indices.shape
     check_tensor(table, "table", table.dtype, (V, d), dev)

@@ -128,6 +128,11 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
                             f" {what}, got {t.dtype}")
     for t, what in ((k, "k"), (v, "v")):
         check_operand(t, what, k.dtype, q.device)
+    cuda_build.refuse_grad(
+        "flash_decode", (q, k, v),
+        "decode attention serves only; a training step's attention goes "
+        "through flash_attention.attention, whose backward is the "
+        "flash_attention_bwd kernel")
     q = q.contiguous()  # (B, Hq, 1, D) from (B, 1, Hq, D): already is
     G = Hq // Hkv
     if D not in HEAD_DIMS or G > MAX_GROUP:

@@ -1,6 +1,6 @@
 """Launch the hand-written CUDA flash-attention kernels.
 
-Two sources, one function:
+Two forward sources, one function:
 
 * ``csrc/flash_attention_wgmma.cu`` — bf16 on the Hopper tensor cores
   (``wgmma``, TMA), head dims 64, 128 and 256: the LM's bf16 prefill;
@@ -9,7 +9,10 @@ Two sources, one function:
   configs.
 
 :func:`attention_route` picks one from ``(dtype, D)`` alone, never from a
-failure.  Both are built and loaded by :mod:`repro_torch.kernels.cuda_build`
+failure.  The backward, ``csrc/flash_attention_bwd.cu`` (fp32 FMA, both
+dtypes, every head dim), is :func:`flash_attention_bwd_cuda`, counted in
+``launches["flash_attention_bwd"]``; :func:`.ops.attention` calls it from
+its autograd path.  Both are built and loaded by :mod:`repro_torch.kernels.cuda_build`
 (``nvcc`` for ``sm_90a`` on first use, ``ctypes``).  The launchers take
 tensors on the card, check them, allocate the output, launch on
 ``torch.cuda.current_stream()`` and count the launch in
@@ -28,7 +31,8 @@ import torch
 from repro_torch.kernels import cuda_build
 
 __all__ = ["flash_attention_cuda", "flash_attention_fma_cuda",
-           "flash_attention_wgmma_cuda", "attention_route", "strided_ok",
+           "flash_attention_wgmma_cuda", "flash_attention_bwd_cuda",
+           "attention_route", "strided_ok",
            "HEAD_DIMS", "WGMMA_HEAD_DIMS", "DTYPES"]
 
 #: head dims the FMA kernel is instantiated for
@@ -49,6 +53,11 @@ _WGMMA_SIGNATURES = {
     "flash_attention_wgmma": ([_P] * 4 + [_I64] * 12
                               + [_I32] * 6 + [_F, _I32, _I32, _F, _P], _I32),
     "flash_attention_wgmma_error": ([_I32], ctypes.c_char_p),
+}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd": ([_P] * 10 + [_I32] * 7 + [_F, _I32, _I32, _F,
+                                                      _P], _I32),
+    "flash_attention_bwd_error": ([_I32], ctypes.c_char_p),
 }
 
 
@@ -137,6 +146,10 @@ def flash_attention_cuda(
     comes out 0, not NaN."""
     if not q.is_cuda:
         raise ValueError("flash_attention: q must be a CUDA tensor")
+    cuda_build.refuse_grad(
+        "flash_attention", (q, k, v),
+        "call flash_attention.attention, whose autograd path launches the "
+        "flash_attention_bwd kernel")
     launch = flash_attention_wgmma_cuda \
         if attention_route(q.dtype, q.shape[-1]) == "wgmma" \
         else flash_attention_fma_cuda
@@ -205,3 +218,46 @@ def flash_attention_wgmma_cuda(q, k, v, *, scale=None, causal=True,
     cuda_build.launches["flash_attention"] += 1
     cuda_build.launches["flash_attention_wgmma"] += 1
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, *, scale=None, causal=True,
+                             window=0, softcap=0.0):
+    """Launch the backward kernel (``csrc/flash_attention_bwd.cu``): the
+    gradients (dq, dk, dv) of :func:`.ref.attention_ref`'s output ``out``
+    against ``dout``, for contiguous fp32 or bf16 operands (all alike), any
+    ``D`` in :data:`HEAD_DIMS`.  ``dk`` and ``dv`` sum each KV head's query
+    group; everything is accumulated in fp32, each element by one thread in
+    a fixed order (no atomics: a repeat gives the same bits).  One call is
+    two kernels (dq with the rows' logsumexp, then dk and dv), counted once
+    in ``launches["flash_attention_bwd"]``."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd: q must be a CUDA tensor")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_bwd takes "
+                        f"{sorted(map(str, DTYPES))}, got {q.dtype}")
+    dev = q.device
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (dout, "dout")):
+        check_operand(t, what, q.dtype, dev)
+    B, Hq, Hkv, Sq, Skv, D = _check_shapes(q, k, v, HEAD_DIMS)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if scale is None:
+        scale = D ** -0.5
+    lib = cuda_build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse, delta = torch.empty((2, B * Hq * Sq), dtype=torch.float32,
+                             device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), DTYPES[q.dtype], B, Hq, Hkv,
+            Sq, Skv, D, float(scale), int(bool(causal)), int(window),
+            float(softcap), stream)
+    cuda_build.check_launch(lib, "flash_attention_bwd", rc)
+    cuda_build.launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

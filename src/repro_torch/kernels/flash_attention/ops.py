@@ -8,6 +8,14 @@
 * ``"torch"`` — the plain version in :mod:`.ref`, the default for tensors
   on the CPU, and what ``backend="torch"`` asks for on any device.
 
+Gradients.  On the card, when grad mode is on and q, k or v requires grad,
+the call goes through :class:`FlashAttention`, a
+``torch.autograd.Function`` whose forward is the same kernel route and
+whose backward is the hand-written ``flash_attention_bwd`` kernel (it
+recomputes each row's logsumexp, so the forward kernels keep their one
+output).  Otherwise the forward kernel launches exactly as without
+autograd.  On the CPU the gradient is torch autograd of the plain version.
+
 The reference's ``"pallas"`` (the TPU kernel) is refused with a message
 naming ``"cuda"``.
 """
@@ -19,11 +27,42 @@ import torch
 
 from repro_torch.kernels.cuda_build import BACKENDS, pick_backend
 
-from .kernel import attention_route, flash_attention_cuda, strided_ok
+from .kernel import (attention_route, flash_attention_bwd_cuda,
+                     flash_attention_cuda, strided_ok)
 from .ref import attention_ref
 
-__all__ = ["attention", "pick_backend", "BACKENDS"]
+__all__ = ["attention", "FlashAttention", "pick_backend", "BACKENDS"]
 
+
+def _forward_cuda(q, k, v, scale, causal, window, softcap):
+    """The forward kernel on the operands as the route takes them."""
+    if attention_route(q.dtype, q.shape[-1]) == "wgmma":
+        q, k, v = (t if strided_ok(t) else t.contiguous() for t in (q, k, v))
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                window=window, softcap=softcap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the card with a gradient: the forward kernel, then the
+    ``flash_attention_bwd`` kernel for (dq, dk, dv).  Saves q, k, v and the
+    output (the backward reads them contiguous)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        out = _forward_cuda(q, k, v, scale, causal, window, softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = (t.contiguous() for t in ctx.saved_tensors)
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out,
+                                              dout.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(
@@ -45,9 +84,6 @@ def attention(
         return attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
                              scale=scale, causal=causal, window=window,
                              softcap=softcap)
-    if attention_route(q.dtype, q.shape[-1]) == "wgmma":
-        q, k, v = (t if strided_ok(t) else t.contiguous() for t in (q, k, v))
-    else:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return flash_attention_cuda(q, k, v, scale=scale, causal=causal,
-                                window=window, softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale, causal, window, softcap)
+    return _forward_cuda(q, k, v, scale, causal, window, softcap)

@@ -89,6 +89,10 @@ def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
     if values.ndim != 2:
         raise ValueError(f"{name}: values must be (n, d), got "
                          f"{tuple(values.shape)}")
+    cuda_build.refuse_grad(
+        name, (values, edge_vals),
+        "run impl='slab', which autograd differentiates (a backward for "
+        "the fused engines is ROADMAP B8)")
     dev = values.device
     n, d = values.shape
     nb, eb = window_idx.shape

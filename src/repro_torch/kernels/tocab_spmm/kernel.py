@@ -45,6 +45,10 @@ def tocab_spmm_cuda(values: torch.Tensor, window_idx: torch.Tensor,
                          f"{tuple(values.shape)}")
     if local_budget < 0:
         raise ValueError(f"local_budget must be ≥ 0, got {local_budget}")
+    cuda_build.refuse_grad(
+        "tocab_spmm", (values, edge_vals),
+        "run schedule='uniform' (the slab engine) or dense_impl='onehot', "
+        "which autograd differentiates")
     dev = values.device
     n, d = values.shape
     nb, eb = window_idx.shape

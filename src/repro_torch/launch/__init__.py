@@ -1,1 +1,2 @@
-"""Launchers of the port: :mod:`.serve` (LM serving)."""
+"""Launchers of the port: :mod:`.serve` (LM and recsys serving) and
+:mod:`.train` (training, every family)."""

@@ -1,2 +1,3 @@
-"""Models of the port: the dense decoder-only LM (:mod:`.transformer`) on
-the shared layers (:mod:`.layers`)."""
+"""Models of the port: the decoder-only LM (:mod:`.transformer`, MoE layers
+in :mod:`.moe`) on the shared layers (:mod:`.layers`), BERT4Rec
+(:mod:`.bert4rec`) and the GNN zoo (:mod:`.gnn`)."""

@@ -1,5 +1,5 @@
-"""BERT4Rec [arXiv:1904.06690] of the port, serving half: a bidirectional
-transformer over item sequences (the reference's ``models/bert4rec.py``).
+"""BERT4Rec [arXiv:1904.06690] of the port: a bidirectional transformer
+over item sequences (the reference's ``models/bert4rec.py``).
 
 Entry points: :func:`init_bert4rec`, :func:`params_from_numpy`,
 :func:`bert4rec_encode`, :func:`bert4rec_score` (hidden state at the last
@@ -11,9 +11,11 @@ dict shaped as the reference's tree (``item_emb``, ``pos_emb``, a
 
 Scores, top-k and gathers are torch ops, as they are XLA ops in the
 reference: no TPU kernel runs on this path.  Without a device mesh the
-reference's ``shard`` calls do nothing, and the port has none.  Training
-(``bert4rec_loss_fn``, ``binned_embedding_grad``) is not ported yet
-(ROADMAP A11).
+reference's ``shard`` calls do nothing, and the port has none.  Training:
+:func:`bert4rec_loss_fn` (the full softmax below 50,000 items, the sampled
+softmax with shared negatives above) and :func:`binned_embedding_grad`
+(the embedding gradient sorted by row bin, then summed in that fixed
+order).
 """
 from __future__ import annotations
 
@@ -23,11 +25,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import _normal, init_dense
+from .layers import _normal, cross_entropy_loss, init_dense
 
 __all__ = ["Bert4RecCfg", "init_bert4rec", "params_from_numpy",
            "cast_params", "param_count", "bert4rec_encode", "bert4rec_score",
-           "bert4rec_retrieve"]
+           "bert4rec_retrieve", "bert4rec_loss_fn", "binned_embedding_grad"]
 
 Tensor = torch.Tensor
 
@@ -38,8 +40,9 @@ _BLOCK_NORMS = ("ln1", "b_ln1", "ln2", "b_ln2")
 @dataclasses.dataclass(frozen=True)
 class Bert4RecCfg:
     """The reference's config, field for field.  ``dropout``,
-    ``max_masked`` and ``num_negatives`` steer training, which is not
-    ported yet."""
+    ``max_masked`` and ``num_negatives`` are the reference's training
+    knobs; its loss reads none of them (the batch carries the masked
+    positions and the negatives)."""
     name: str
     vocab: int  # num items (+1 mask +1 pad handled inside)
     max_len: int
@@ -190,3 +193,53 @@ def bert4rec_retrieve(params: dict, items: Tensor, candidates: Tensor,
     scores = (cand_emb @ user).float()
     vals, idx = torch.topk(scores, top_k)
     return vals, candidates[idx]
+
+
+def bert4rec_loss_fn(params: dict, batch: dict, cfg: Bert4RecCfg) -> tuple:
+    """→ (loss, {"ce": loss}).  Small vocab (the paper's full softmax):
+    batch = {items (B, L) with MASK, labels (B, L), label_mask (B, L)}.
+    Huge vocab (``cfg.sampled_softmax``: sampled softmax, shared
+    negatives): the batch also holds mask_pos (B, M) int, pos_labels
+    (B, M), pos_weight (B, M) and negatives (K,) int."""
+    h = bert4rec_encode(params, batch["items"], cfg)
+    emb = params["item_emb"]
+    if not cfg.sampled_softmax:
+        logits = torch.einsum("bld,vd->blv", h, emb[: cfg.vocab])
+        loss = cross_entropy_loss(logits, batch["labels"],
+                                  batch["label_mask"])
+        return loss, {"ce": loss}
+    # hidden states at the masked positions: (B, M, d)
+    pos = batch["mask_pos"].long()
+    hm = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))
+    pos_labels, negatives = batch["pos_labels"].long(), \
+        batch["negatives"].long()
+    pos_e = emb[pos_labels]  # (B, M, d)
+    neg_e = emb[negatives]  # (K, d)
+    s_pos = (hm * pos_e).sum(-1)  # (B, M)
+    s_neg = torch.einsum("bmd,kd->bmk", hm, neg_e)  # (B, M, K)
+    # exclude accidental hits (negative == label)
+    hit = negatives[None, None, :] == pos_labels[..., None]
+    s_neg = torch.where(hit, -1e30, s_neg)
+    logits = torch.cat([s_pos[..., None], s_neg], dim=-1)  # (B, M, 1+K)
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    nll = logz - s_pos.float()
+    w = batch["pos_weight"].float()
+    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return loss, {"ce": loss}
+
+
+def binned_embedding_grad(token_ids: Tensor, grads: Tensor, table_size: int,
+                          num_bins: int = 64) -> Tensor:
+    """Push-mode TOCAB for the embedding gradient: the (token, gradient)
+    pairs stably sorted by destination row bin (the runtime binning pass),
+    then summed into a ``(table_size, d)`` table with ``index_add_`` in
+    that order — the flat segment sum's value (on the CPU a fixed order of
+    additions; on the card ``index_add_`` adds with atomics, so its sums
+    agree with the flat sum to fp32 rounding)."""
+    flat_ids = token_ids.reshape(-1).long()
+    flat_g = grads.reshape(-1, grads.shape[-1])
+    bin_size = -(-table_size // num_bins)
+    order = torch.sort(flat_ids // bin_size, stable=True).indices
+    out = torch.zeros((table_size, flat_g.shape[-1]), dtype=flat_g.dtype,
+                      device=flat_g.device)
+    return out.index_add_(0, flat_ids[order], flat_g[order])

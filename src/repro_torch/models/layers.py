@@ -10,8 +10,9 @@ prefill/forward path through :func:`~repro_torch.kernels.flash_attention.
 attention` (the ``flash_attention`` kernel on the card) and the decode step
 through :func:`~repro_torch.kernels.flash_attention.flash_decode`.  The
 reference's ``shard(...)`` annotations are dropped: the port runs on one
-device (distribution is ROADMAP A12).  ``cross_entropy_loss`` comes with
-training.
+device (distribution is ROADMAP A12).  :func:`cross_entropy_loss` is the
+training loss; every function here is differentiable (on the card the
+attention's gradient is the ``flash_attention_bwd`` kernel).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.kernels.flash_attention import attention as attn_op
 from repro_torch.kernels.flash_attention import flash_decode
 
 __all__ = [
-    "rms_norm", "rope", "init_dense", "dense", "AttnCfg", "init_attention",
+    "rms_norm", "rope", "init_dense", "dense", "cross_entropy_loss",
+    "AttnCfg", "init_attention",
     "attention_block", "decode_attention_block", "init_mlp", "mlp_block",
 ]
 
@@ -69,6 +71,22 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int,
 
 def dense(x: Tensor, w: Tensor) -> Tensor:
     return x @ w.to(x.dtype)
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor,
+                       mask: Optional[Tensor] = None,
+                       softcap: float = 0.0) -> Tensor:
+    """Mean next-token CE.  logits (..., V) fp32; labels int (...,)."""
+    logits = logits.float()
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 # --------------------------------------------------------------------- #

@@ -4,8 +4,9 @@ sliding-window layers, alternating local/global layers, attention and
 final logit soft-capping, tied embeddings, MoE layers with TOCAB-binned
 dispatch for Granite and Mixtral).
 
-Entry points: :func:`init_params`, :func:`forward`, :func:`serve_prefill`,
-:func:`init_cache`, :func:`serve_decode`.  Parameters are a dict of
+Entry points: :func:`init_params`, :func:`forward`, :func:`loss_fn` (the
+training loss), :func:`serve_prefill`, :func:`init_cache`,
+:func:`serve_decode`.  Parameters are a dict of
 tensors shaped as the reference's tree, except that the layers are a list
 of per-layer dicts instead of arrays stacked on a leading axis (the
 reference stacks them for ``lax.scan``; here the layers run in a Python
@@ -33,12 +34,13 @@ import numpy as np
 import torch
 
 from .layers import (AttnCfg, _normal, attention_block,
-                     decode_attention_block, init_attention, init_mlp,
-                     mlp_block, rms_norm)
+                     cross_entropy_loss, decode_attention_block,
+                     init_attention, init_mlp, mlp_block, rms_norm)
 from .moe import MoECfg, init_moe, moe_block
 
 __all__ = ["TransformerCfg", "KVCache", "init_params", "cast_params",
-           "params_from_numpy", "forward", "serve_prefill", "serve_decode",
+           "params_from_numpy", "forward", "loss_fn", "serve_prefill",
+           "serve_decode",
            "cache_len", "init_cache", "param_count", "default_device"]
 
 Tensor = torch.Tensor
@@ -58,8 +60,10 @@ class TransformerCfg:
     """The reference's config, field for field.  ``remat``,
     ``remat_policy`` and ``use_scan`` are accepted and change nothing:
     they steer JAX's rematerialisation and ``lax.scan`` over layers, and
-    the port runs eagerly, one layer after the other, with no backward
-    pass yet.  ``moe_aux_coef`` waits for the training loss."""
+    the port runs eagerly, one layer after the other, keeping every
+    layer's activations for the backward pass (no recomputation; PERF.md
+    gives the peak memory of the full-width step).  ``moe_aux_coef``
+    weighs the MoE aux loss in :func:`loss_fn`."""
     name: str
     n_layers: int
     d_model: int
@@ -310,6 +314,19 @@ def forward(params: dict, tokens: Tensor, cfg: TransformerCfg) -> tuple:
     version on the CPU."""
     x, aux = _hidden(params, tokens, cfg)
     return _unembed(params, x, cfg), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerCfg) -> tuple:
+    """batch = {tokens (B, S+1), loss_mask optional} → (loss, metrics):
+    next-token CE plus ``moe_aux_coef`` × the MoE aux loss."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens[:, :-1], cfg)
+    labels = tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    mask = mask[:, 1:] if mask is not None else None
+    ce = cross_entropy_loss(logits, labels, mask)
+    loss = ce + cfg.moe_aux_coef * aux
+    return loss, {"ce": ce, "moe_aux": aux}
 
 
 def serve_prefill(params: dict, tokens: Tensor, cfg: TransformerCfg

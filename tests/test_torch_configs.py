@@ -1,6 +1,6 @@
 """The port's per-arch config modules (``repro_torch.configs.<arch>``)
-give the reference's configs field for field; the GNN archs, which come
-with the training slice, still raise."""
+give the reference's configs field for field, the four GNN archs
+included."""
 import dataclasses
 import importlib
 
@@ -15,6 +15,10 @@ MODULES = {
     "granite_moe_3b_a800m": "granite-moe-3b-a800m",
     "mixtral_8x22b": "mixtral-8x22b",
     "bert4rec": "bert4rec",
+    "gat_cora": "gat-cora",
+    "gin_tu": "gin-tu",
+    "dimenet": "dimenet",
+    "graphsage_reddit": "graphsage-reddit",
 }
 
 
@@ -28,16 +32,22 @@ def test_arch_module_matches_reference(module):
         a, b = getattr(mine, make)(), getattr(ref, make)()
         assert type(a).__name__ == type(b).__name__
         assert dataclasses.asdict(a) == dataclasses.asdict(b), make
-    # the port's ShapeCell holds the LM and recsys fields (the GNN ones come
-    # with the GNN slice): each equals the reference's
+    # the port's ShapeCell holds every field of the reference's
     assert len(mine.SHAPES) == len(ref.SHAPES)
     for a, b in zip(mine.SHAPES, ref.SHAPES):
-        assert dataclasses.asdict(a) == {
-            f: getattr(b, f) for f in dataclasses.asdict(a)}
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 @pytest.mark.parametrize("arch", ["gat-cora", "gin-tu", "dimenet",
                                   "graphsage-reddit"])
 def test_gnn_archs_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="A10"):
-        get_arch(arch)
+    """The GNN archs were refused until the training slice; now
+    ``get_arch`` returns them (family ``gnn``, the reference's source),
+    and only a name it does not know raises."""
+    from repro.configs import get_arch as ref_get_arch
+
+    spec, ref = get_arch(arch), ref_get_arch(arch)
+    assert (spec.family, spec.source, spec.notes) == (
+        "gnn", ref.source, ref.notes)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch(arch + "-x")

@@ -38,6 +38,13 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.configs.granite_moe_3b_a800m\n"
         "import repro_torch.configs.mixtral_8x22b\n"
         "import repro_torch.configs.bert4rec\n"
+        "import repro_torch.train.optim, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.trainer, repro_torch.train.tree\n"
+        "import repro_torch.models.gnn, repro_torch.data.graphs\n"
+        "import repro_torch.data.sampler, repro_torch.launch.train\n"
+        "import repro_torch.configs.gnn_archs, repro_torch.configs.gat_cora\n"
+        "import repro_torch.configs.gin_tu, repro_torch.configs.dimenet\n"
+        "import repro_torch.configs.graphsage_reddit\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
@@ -60,10 +67,11 @@ def test_no_jax_or_repro_import_lines():
 
 
 def test_card_scripts_import_neither_jax_nor_repro():
-    """``chip_smoke.py`` and the port's benchmarks run on the card's
-    machine, which has no JAX."""
+    """``chip_smoke.py``, the port's benchmarks and its examples run on the
+    card's machine, which has no JAX."""
     files = [ROOT / "chip_smoke.py",
-             *sorted((ROOT / "benchmarks").glob("torch_*.py"))]
+             *sorted((ROOT / "benchmarks").glob("torch_*.py")),
+             *sorted((ROOT / "examples").glob("torch_*.py"))]
     assert ROOT / "benchmarks" / "torch_paper_figs.py" in files
     assert _offenders(files, ROOT) == []
 
