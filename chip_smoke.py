@@ -40,17 +40,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    8 × 2048 prefill in fp32 (FMA) and bf16 (tensor cores), ``flash_decode``
    in fp32 at a 32768-slot cache.  fp32 at rtol = atol = 2e-5, bf16 at one
    bf16 ulp relative plus two of the mean |entry|.  Then the attention
-   gradient: ``flash_attention_bwd`` through ``attention``'s autograd path
-   against torch autograd of ``attention_ref`` (fp32, on the same values)
-   at TinyLlama's training shape (bf16, 8 × 32/4 heads × 512 × 64,
-   causal), a Gemma-2-27B local layer (bf16, 1 × 32/16 heads × 4608 × 128,
-   window 4096, softcap 50, the scores spread over the cap's range) and a
-   smoke shape (fp32, D 16, bidirectional): max |error| of dq, dk and dv
-   over their largest magnitude, at most 2⁻⁷ (bf16) and 1e-4 (fp32); a
-   gradient without the softcap's tanh derivative must fail the Gemma
-   case; a repeat is bit-equal; then the kernel timed at the TinyLlama
-   shape beside its bound (2.5× the forward's flops), autograd of the
-   plain version and SDPA's backward (forward + backward minus forward).
+   gradient through ``attention``'s autograd path, the backward that
+   ``attention_bwd_route`` picks (bf16 D 64/128: ``flash_attention_bwd_
+   wgmma`` on the tensor cores, one launch counted in both
+   ``flash_attention_bwd`` and ``flash_attention_bwd_wgmma``; fp32:
+   ``flash_attention_bwd``, FMA) against torch autograd of
+   ``attention_ref`` (fp32, on the same values) at TinyLlama's training
+   shape (bf16, 8 × 32/4 heads × 512 × 64, causal), the same as the
+   transposed (B, S, H, D) views the LM passes, a Gemma-2-27B local layer
+   (bf16, 1 × 32/16 heads × 4608 × 128, window 4096, softcap 50, the
+   scores spread over the cap's range), a ragged one (bf16, 2 × 8/2 ×
+   1000 × 64, bidirectional, window 300) and a smoke shape (fp32, D 16,
+   bidirectional): max |error| of dq, dk and dv over their largest
+   magnitude, at most 2⁻⁷ (bf16) and 1e-4 (fp32); a gradient without the
+   softcap's tanh derivative must fail the Gemma case.  The tensor-core
+   forward's logsumexp against ``attention_lse_ref`` at every bf16 case
+   (``LSE_RTOL``), its output bit-equal with and without it; repeats of
+   the tensor-core backward bit-equal; then the kernel timed at the
+   TinyLlama shape beside its bound (2.5× the forward's flops), the PR 23
+   FMA backward on the same operands (``previous_ms``), autograd of the
+   plain version and SDPA's backward alone (``torch.autograd.grad`` of a
+   retained forward, the median of 5 timed loops, its backend named from
+   the profiler's kernel names); the kernel's and SDPA's backward's device
+   time from ``torch.profiler`` beside them (SDPA's timed loop is
+   host-bound when the host enqueues slower than the card runs).
 4. Main path: a Graph500 Kronecker graph (``rmat_graph(24, 16, seed=1,
    weights=True)``: 16.8 M vertices, ranks larger than the 50 MB L2) →
    ``build_blocked`` pull and push on the card, with per-graph
@@ -196,13 +209,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    params, bf16 compute), AdamW with the cosine schedule, batch 8 × 512:
    step 0's gradient has every leaf finite and non-zero, and its loss and
    gradient norm agree with the same step on ``backend="torch"`` attention
-   (2e-3 and 2e-2 relative); one step profiled (device idle share); then
+   (2e-3 and 2e-2 relative); one step profiled (device idle share, and
+   device time by kernel class); then
    ``launch.train.main`` for 12 steps, all losses finite,
-   ``flash_attention``, ``flash_attention_wgmma`` and
-   ``flash_attention_bwd`` each launched exactly 22 times a step (step ms
-   the median of steps 2-11, tokens/s, peak memory).  (b) An exact resume
-   on the smoke TinyLlama: 6 steps against 4, a restore from ``LATEST``
-   and 2 more, losses and params bit-equal (under
+   ``flash_attention``, ``flash_attention_wgmma``, ``flash_attention_bwd``
+   and ``flash_attention_bwd_wgmma`` each launched exactly 22 times a step
+   (step ms the median of steps 2-11, tokens/s, peak memory).  (b) An
+   exact resume on the smoke TinyLlama: 6 steps against 4, a restore
+   from ``LATEST`` and 2 more, losses and params bit-equal (under
    ``torch.use_deterministic_algorithms``).  (c) GAT-Cora (d_in 1433, 8 ×
    8 heads) for 100 steps on ``cora_like()`` through the TOCAB slab
    engines (``build_blocked(g, block_size=512)``), its flat and TOCAB
@@ -1750,7 +1764,8 @@ def phase_lm(seed: int, log) -> dict:
     forward (flash_attention) against 256 decode steps (flash_decode);
     (b) the serving loop, 8 requests × (512 + 64) tokens, bf16; (c)
     serve_prefill on 8 × 2048 tokens, bf16.  Launch counts are set to 0
-    just before (b) and (c) and read just after."""
+    just before (b) and (c) and read just after; no forward of the phase
+    stores a logsumexp (only the autograd path's does)."""
     import dataclasses
 
     import numpy as np
@@ -1758,9 +1773,11 @@ def phase_lm(seed: int, log) -> dict:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import transformer as tfm
 
+    lse_before = sum(attn_kernel.lse_stores.values())
     dev = torch.device("cuda")
     cfg = get_arch(LM_ARCH).make_model_cfg()
     t0 = time.perf_counter()
@@ -1864,6 +1881,9 @@ def phase_lm(seed: int, log) -> dict:
     emit({"phase": "lm_prefill", "requests": Bp, "tokens": Sp,
           "seconds": secs, "tokens_per_s": Bp * Sp / secs,
           "launches": launches_c})
+    if sum(attn_kernel.lse_stores.values()) != lse_before:
+        raise AssertionError("a forward of the serving phase stored a "
+                             "logsumexp")
     del master
     return {"params": params,  # phase 10(c) serves with them, then frees
             "launches": {"flash_decode": launches_b.get("flash_decode", 0),
@@ -2890,7 +2910,7 @@ MIXTRAL_LAYERS = 2
 #: device time) and the rest.
 KERNEL_CLASSES = {
     "attention": ("attn_kernel", "attn_wgmma_kernel", "decode_kernel",
-                  "decode_mma_kernel"),
+                  "decode_mma_kernel", "dq_kernel", "dkdv_kernel"),
     "sort": ("sort", "Sort", "radix", "Radix"),
     "scatter_gather": ("index", "gather", "scatter", "Index", "Gather",
                        "Scatter"),
@@ -3363,9 +3383,20 @@ def add_moe_launches(records: list, lines: list):
 #: bf16; everything inside is fp32); fp32: 1e-4 (fp32 sums in another
 #: order, over up to 4608 keys)
 BWD_REL_OF_MAX = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
-#: the backward kernel's source, and what it takes the place of: XLA's
-#: autodiff of attention_ref (the JAX package has no TPU backward kernel)
-BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+#: the tensor-core forward's logsumexp vs attention_lse_ref (fp32 on the
+#: same values): |error| ≤ LSE_RTOL · max(1, |lse|).  Both are fp32; the
+#: kernel's scores come from the tensor cores in another order, through
+#: ex2.approx (2⁻²²) and log2f: a few fp32 ulps of |lse|, some 80 below
+#: this bound, which a wrong scale, cap or mask exceeds by far
+LSE_RTOL = 1e-5
+#: the backward kernels' sources (the row's is the tensor-core one, the
+#: training path's; the FMA one serves fp32, D 8-32 and D 256), and what
+#: they take the place of: XLA's autodiff of attention_ref (the JAX
+#: package has no TPU backward kernel)
+BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd_wgmma.cu")
+BWD_FMA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu")
 BWD_REPLACES = ("src/repro/kernels/flash_attention/ref.py:10 (XLA autodiff "
                 "of attention_ref; no TPU kernel)")
 
@@ -3422,59 +3453,125 @@ def rel_of_max(out, ref) -> tuple:
     return err, err / max(float(ref.abs().max()), 1e-30)
 
 
+def profiled_device_ms(fn, calls: int = 3) -> tuple:
+    """``fn()`` under ``torch.profiler``, ``calls`` times: the median of
+    each call's device time (the summed durations of its kernels and
+    copies, which a host slower than the device does not stretch) and the
+    names of the kernels that ran."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    per_call, names = [], set()
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total > 0]
+        per_call.append(sum(e.device_time_total for e in events) / 1e3)
+        names.update(e.key for e in events)
+    return statistics.median(per_call), sorted(names)
+
+
+def sdpa_backend(names) -> str:
+    """The SDPA backend named by the kernels that ran: ``cudnn``,
+    ``flash``, ``efficient`` or ``math``."""
+    low = " ".join(names).lower()
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("fmha", "efficient", "mem_eff"))):
+        if any(m in low for m in marks):
+            return backend
+    return "math"
+
+
 def phase_attention_backward(seed: int, log) -> dict:
-    """``flash_attention_bwd`` through ``attention``'s autograd path against
-    torch autograd of ``attention_ref`` (fp32 oracle on the same values) at
-    three shapes: TinyLlama's training attention (bf16, 8 × 32/4 heads ×
-    512 × 64, causal), a Gemma-2-27B local layer (bf16, 1 × 32/16 heads ×
-    4608 × 128, window 4096, softcap 50, q scaled so the scores spread over
-    the cap's range) and a smoke shape (fp32, D 16, bidirectional); a
-    gradient without the softcap's tanh derivative must fail the Gemma
-    check; the TinyLlama case repeated bit-equal.  Then the kernel timed at
-    the TinyLlama shape beside its bound, autograd of the plain version and
-    SDPA's backward.  Returns the ``kernels`` row (launches filled in by
-    phase 13)."""
+    """Attention's gradient through ``attention``'s autograd path, the
+    backward ``attention_bwd_route`` picks, against torch autograd of
+    ``attention_ref`` (fp32 oracle on the same values) at five shapes:
+    TinyLlama's training attention (bf16, 8 × 32/4 heads × 512 × 64,
+    causal), the same as transposed (B, S, H, D) views (the LM's
+    projections), a Gemma-2-27B local layer (bf16, 1 × 32/16 heads × 4608
+    × 128, window 4096, softcap 50, q scaled so the scores spread over the
+    cap's range), a ragged bidirectional window (bf16, 2 × 8/2 × 1000 × 64,
+    window 300) and a smoke shape (fp32, D 16, bidirectional: the FMA
+    backward).  A gradient without the softcap's tanh derivative must fail
+    the Gemma check; at every bf16 case the tensor-core forward's
+    logsumexp is held against ``attention_lse_ref`` and its output with
+    the lse bit-equal to its output without; the tensor-core backward is
+    repeated bit-equal at TinyLlama's shape.  Then it is timed there
+    beside its bound, the PR 23 FMA backward on the same operands, autograd
+    of the plain version and SDPA's backward alone.  Returns the
+    ``kernels`` row (launches filled in by phase 13)."""
+    import statistics
+
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import attention
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+        attention_bwd_route, flash_attention_bwd_cuda,
+        flash_attention_bwd_wgmma_cuda, flash_attention_wgmma_cuda)
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def rand(*shape, dtype, mul=1.0):
+    def rand(*shape, dtype, mul=1.0, bshd=False):
+        if bshd:  # a (B, S, H, D) buffer seen as (B, H, S, D)
+            B, H, S, D = shape
+            return rand(B, S, H, D, dtype=dtype, mul=mul).transpose(1, 2)
         return (torch.randn(shape, generator=gen, device=dev) * mul).to(dtype)
 
-    cases = {  # name: (B, Hq, Hkv, S, D, dtype, kw, q scale)
+    def lse_plain(q, k, v, **kw):
+        """attention_lse_ref's lse, one KV head's query group at a time."""
+        g = q.shape[1] // k.shape[1]
+        return torch.cat([attention_lse_ref(
+            q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1], **kw)[1]
+            for h in range(k.shape[1])], dim=1)
+
+    cases = {  # name: (B, Hq, Hkv, S, D, dtype, kw, q scale, (B, S, H, D))
         "tinyllama": (8, 32, 4, 512, 64, torch.bfloat16,
-                      dict(causal=True), 1.0),
+                      dict(causal=True), 1.0, False),
+        "tinyllama_bshd_views": (8, 32, 4, 512, 64, torch.bfloat16,
+                                 dict(causal=True), 1.0, True),
         "gemma2_27b_local": (1, 32, 16, 4608, 128, torch.bfloat16,
                              dict(causal=True, window=4096, softcap=50.0,
-                                  scale=(4608 / 32) ** -0.5), 16.0),
+                                  scale=(4608 / 32) ** -0.5), 16.0, False),
+        "ragged_window": (2, 8, 2, 1000, 64, torch.bfloat16,
+                          dict(causal=False, window=300), 1.0, False),
         "smoke": (2, 4, 2, 100, 16, torch.float32,
-                  dict(causal=False), 1.0),
+                  dict(causal=False), 1.0, False),
     }
     out_rec, keep = {}, {}
-    for name, (B, Hq, Hkv, S, D, dtype, kw, qmul) in cases.items():
-        q = rand(B, Hq, S, D, dtype=dtype, mul=qmul)
-        k, v = (rand(B, Hkv, S, D, dtype=dtype) for _ in range(2))
-        dout = rand(B, Hq, S, D, dtype=dtype)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        n0 = cuda_build.launches["flash_attention_bwd"]
+    for name, (B, Hq, Hkv, S, D, dtype, kw, qmul, bshd) in cases.items():
+        q = rand(B, Hq, S, D, dtype=dtype, mul=qmul, bshd=bshd)
+        k, v = (rand(B, Hkv, S, D, dtype=dtype, bshd=bshd) for _ in range(2))
+        dout = rand(B, Hq, S, D, dtype=dtype, bshd=bshd)
+        route = attention_bwd_route(dtype, D)
+        # leaves with the operands' strides (a transposed view stays one)
+        leaves = [t.detach().clone().requires_grad_() if not bshd else
+                  t.transpose(1, 2).detach().clone().transpose(1, 2)
+                  .requires_grad_() for t in (q, k, v)]
+        before = dict(cuda_build.launches)
         attention(*leaves, **kw).backward(dout)
         torch.cuda.synchronize()
-        if cuda_build.launches["flash_attention_bwd"] != n0 + 1:
-            raise AssertionError(f"attention backward at {name}: not one "
-                                 "flash_attention_bwd launch")
+        took = {n: cuda_build.launches[n] - before.get(n, 0)
+                for n in ("flash_attention_bwd", "flash_attention_bwd_wgmma")}
+        want = {"flash_attention_bwd": 1,
+                "flash_attention_bwd_wgmma": int(route == "wgmma")}
+        if took != want:
+            raise AssertionError(f"attention backward at {name} ({route}): "
+                                 f"launched {took}, want {want}")
         ref = attention_grads_plain(q, k, v, dout, attention_ref, **kw)
         limit = BWD_REL_OF_MAX[str(dtype)[6:]]
         rec = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
-               "dtype": str(dtype)[6:],
+               "dtype": str(dtype)[6:], "route": route,
+               "bshd_views": bshd,
                "kw": {a: b for a, b in kw.items() if a != "scale"},
                "limit_rel_of_max": limit}
         for nm, got, r in zip(("dq", "dk", "dv"), leaves, ref):
@@ -3484,11 +3581,12 @@ def phase_attention_backward(seed: int, log) -> dict:
                                      "or not finite")
             err, rel = rel_of_max(got.grad, r)
             rec[nm] = {"max_abs_err": err, "rel_of_max": rel}
-            log(f"flash_attention_bwd {name} {nm}: max_abs_err={err:.3g} "
-                f"rel_of_max={rel:.3g} limit={limit:.3g}")
+            log(f"attention backward {name} ({route}) {nm}: "
+                f"max_abs_err={err:.3g} rel_of_max={rel:.3g} "
+                f"limit={limit:.3g}")
             if not rel <= limit:
-                raise AssertionError(f"flash_attention_bwd {name} {nm}: "
-                                     f"{rel:.3g} of max > {limit:.3g}")
+                raise AssertionError(f"attention backward {name} ({route}) "
+                                     f"{nm}: {rel:.3g} of max > {limit:.3g}")
         if kw.get("softcap"):
             # the same check against a gradient without the cap derivative
             wrong = attention_grads_plain(q, k, v, dout,
@@ -3501,32 +3599,63 @@ def phase_attention_backward(seed: int, log) -> dict:
                     f"{name}: a gradient without the softcap derivative "
                     f"passes the check ({worst:.3g} ≤ {limit:.3g})")
             del wrong
+        if route == "wgmma":
+            # the forward's logsumexp, and its output unchanged by storing it
+            out, lse = flash_attention_wgmma_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+            same = bool(torch.equal(out, flash_attention_wgmma_cuda(
+                q, k, v, **kw)))
+            ref_lse = lse_plain(q, k, v, **kw)
+            lse_err = float((lse - ref_lse).abs().max())
+            lse_share = float(((lse - ref_lse).abs()
+                               / ref_lse.abs().clamp(min=1.0)).max()) \
+                / LSE_RTOL
+            rec["lse"] = {"max_abs_err": lse_err,
+                          "share_of_limit": lse_share,
+                          "out_bit_equal_without_lse": same}
+            log(f"flash_attention lse {name}: max_abs_err={lse_err:.3g} "
+                f"share_of_limit={lse_share:.3g}")
+            if not (lse_share <= 1.0 and same):
+                raise AssertionError(f"{name}: the forward's lse is "
+                                     f"{lse_share:.3g}x its bound, or its "
+                                     "output moved with it")
+            if name == "tinyllama":
+                keep = dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse,
+                            kw=kw, rec=rec)
+            del out, lse, ref_lse
         out_rec[name] = rec
-        if name == "tinyllama":
-            keep = dict(q=q, k=k, v=v, dout=dout, kw=kw, rec=rec)
         del q, k, v, dout, leaves, ref
         torch.cuda.empty_cache()
 
     # the TinyLlama shape: repeats, then times
-    q, k, v, dout, kw = (keep[n] for n in ("q", "k", "v", "dout", "kw"))
-    out = flash_attention_cuda(q, k, v, **kw)
-    first = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
-    again = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    q, k, v, dout, out, lse, kw = (keep[n] for n in ("q", "k", "v", "dout",
+                                                     "out", "lse", "kw"))
+
+    def run():
+        return flash_attention_bwd_wgmma_cuda(q, k, v, out, dout, lse, **kw)
+
+    first, again = run(), run()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        raise AssertionError("flash_attention_bwd: repeats differ")
+        raise AssertionError("flash_attention_bwd_wgmma: repeats differ")
     del first, again
-    ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, dout, **kw),
-                 reps=5, warmup=1)
+    ms = cuda_ms(run, reps=20, warmup=3)
+    previous_ms = cuda_ms(lambda: flash_attention_bwd_cuda(
+        q, k, v, out, dout, **kw), reps=5, warmup=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         attention_ref(*leaves, **kw), leaves, dout), reps=2)
-    sdpa = dict(is_causal=True, enable_gqa=True)
-    lib_both = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(*leaves, **sdpa), leaves, dout),
-        reps=10, warmup=2)
-    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
-                      reps=10, warmup=2)
+    # SDPA's backward alone: one retained forward, then the backward timed
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)
+
+    lib_loops = [cuda_ms(sdpa_bwd, reps=10, warmup=2) for _ in range(5)]
+    lib_device_ms, kernels_seen = profiled_device_ms(sdpa_bwd)
+    backend = sdpa_backend(kernels_seen)
+    device_ms, _ = profiled_device_ms(run)
     B, Hq, S, D = q.shape
     fwd_flops = 4 * B * Hq * S * S * D / 2  # causal: half the scores
     ops = 2.5 * fwd_flops
@@ -3535,16 +3664,22 @@ def phase_attention_backward(seed: int, log) -> dict:
         HBM_BYTES_PER_S
     tl = keep["rec"]
     row = {"name": "flash_attention_bwd", "route": "cuda",
+           "attention_bwd_route": "wgmma",
            "source": BWD_SOURCE, "replaces": BWD_REPLACES, "launches": 0,
            "max_abs_err": max(tl[n]["max_abs_err"] for n in ("dq", "dk",
                                                               "dv")),
            "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-           "library_ms": lib_both - lib_fwd,
-           "library": "scaled_dot_product_attention forward+backward minus "
-                      "forward",
-           "library_fwd_bwd_ms": lib_both, "library_fwd_ms": lib_fwd,
+           "library_ms": statistics.median(lib_loops),
+           "library": f"scaled_dot_product_attention backward alone "
+                      f"({backend})",
+           "library_loops_ms": lib_loops,
+           "library_device_ms": lib_device_ms,
+           "library_kernels": [n[:100] for n in kernels_seen[:8]],
+           "device_ms": device_ms,
+           "previous_ms": previous_ms,
+           "previous": BWD_FMA_SOURCE + " (PR 23, FP32 FMA)",
            "plain": "torch.autograd.grad of attention_ref (its forward "
                     "included)",
            "rel_of_max": {n: tl[n]["rel_of_max"] for n in ("dq", "dk", "dv")},
@@ -3553,7 +3688,7 @@ def phase_attention_backward(seed: int, log) -> dict:
            "bound_share": max(ops_ms, bytes_ms) / ms}
     emit({"phase": "attention_backward_vs_plain", "cases": out_rec,
           "repeat": "bit-identical x2", "seconds": time.perf_counter() - t0})
-    del q, k, v, dout, out, leaves, keep
+    del q, k, v, dout, out, lse, leaves, keep, sdpa_out
     torch.cuda.empty_cache()
     return row
 
@@ -3603,7 +3738,8 @@ def device_idle_share(fn) -> dict:
 def phase_train_lm(seed: int, log) -> dict:
     """(a) TinyLlama-1.1B at its published width through
     ``repro_torch.launch.train``: step 0's gradient (kernels) checked leaf
-    by leaf and against ``backend="torch"`` attention, one step profiled,
+    by leaf and against ``backend="torch"`` attention, one step profiled
+    (the device's idle share, then its device time by kernel class),
     then ``main`` for 12 steps with the launch counts set to 0 just before
     it and read just after."""
     import contextlib
@@ -3632,9 +3768,11 @@ def phase_train_lm(seed: int, log) -> dict:
     cuda_build.reset_launches()
     loss0, _, grads = _value_and_grad(loss_fn, params, batch)
     checked = dict(cuda_build.launches)
-    if checked.get("flash_attention_bwd", 0) != cfg.n_layers:
+    if checked.get("flash_attention_bwd", 0) != cfg.n_layers \
+            or checked.get("flash_attention_bwd_wgmma", 0) != cfg.n_layers:
         raise AssertionError(f"step 0's gradient launched {checked}; want "
-                             f"flash_attention_bwd = {cfg.n_layers}")
+                             f"flash_attention_bwd = flash_attention_bwd_"
+                             f"wgmma = {cfg.n_layers}")
     bad = [p for p, g in zip(tree_paths(grads), tree_leaves(grads))
            if not bool(g.isfinite().all()) or not bool((g != 0).any())]
     if bad or not bool(loss0.isfinite()):
@@ -3675,6 +3813,7 @@ def phase_train_lm(seed: int, log) -> dict:
     del p1, s1
     torch.cuda.synchronize()
     profile = device_idle_share(lambda: step(params, state, batch))
+    by_op = op_breakdown(lambda: step(params, state, batch), top=10)
     del params, state, batch, batches, step
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
@@ -3700,12 +3839,13 @@ def phase_train_lm(seed: int, log) -> dict:
     if abs(losses[0] - float(loss0)) > 1e-5 * abs(float(loss0)):
         raise AssertionError(f"main's step 0 loss {losses[0]} is not the "
                              f"checked step's {float(loss0)}")
-    if launches.get("flash_attention_bwd", 0) != want \
-            or launches.get("flash_attention", 0) != want \
-            or launches.get("flash_attention_wgmma", 0) != want:
+    if any(launches.get(n, 0) != want for n in (
+            "flash_attention", "flash_attention_wgmma",
+            "flash_attention_bwd", "flash_attention_bwd_wgmma")):
         raise AssertionError(f"training launched {launches}; want "
                              f"flash_attention = flash_attention_wgmma = "
-                             f"flash_attention_bwd = {want}")
+                             f"flash_attention_bwd = flash_attention_bwd_"
+                             f"wgmma = {want}")
     dts = sorted(h["dt"] for h in hist[2:])
     step_ms = 1e3 * dts[len(dts) // 2]
     tokens = args.batch * args.seq
@@ -3723,6 +3863,7 @@ def phase_train_lm(seed: int, log) -> dict:
             "tokens_per_s": tokens / (step_ms / 1e3),
             "peak_memory_gb": peak / 1e9,
             "one_step_profile": profile,
+            "one_step_device_ms_by_op": by_op,
             "launches": launches, "setup_seconds": setup_s,
             "run_seconds": run_s}
     emit(line)
@@ -4014,6 +4155,8 @@ def phase_training(seed: int, log, bwd_row: dict) -> dict:
     lm = phase_train_lm(seed, log)
     torch.cuda.empty_cache()
     bwd_row["launches"] = lm["launches"].get("flash_attention_bwd", 0)
+    bwd_row["launches_wgmma"] = lm["launches"].get(
+        "flash_attention_bwd_wgmma", 0)
     bwd_row["train"] = {"step_ms": lm["step_ms_median_2_11"],
                         "tokens_per_s": lm["tokens_per_s"],
                         "peak_memory_gb": lm["peak_memory_gb"]}

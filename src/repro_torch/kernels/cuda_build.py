@@ -3,11 +3,13 @@ kernel directory.
 
 Each source (``<family>/csrc/<name>.cu``) is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds.  Libraries go to
-``<family>/_build/`` on first use; a source newer than its library is
-rebuilt.  :func:`build` compiles every stale source at once, one ``nvcc``
-process each.  A failed build raises, and so does a launch the CUDA runtime
-refuses (:func:`check_launch`): there is no fallback.
+``ctypes`` — no PyTorch headers, so a build takes seconds.  A source may
+include the headers (``*.cuh``) beside it.  Libraries go to
+``<family>/_build/`` on first use; a source newer than its library, or a
+header beside it newer, is rebuilt.  :func:`build` compiles every stale
+source at once, one ``nvcc`` process each.  A failed build raises, and so
+does a launch the CUDA runtime refuses (:func:`check_launch`): there is no
+fallback.
 
 :data:`launches` counts launches per kernel name; each launcher adds one
 where it launches its kernel and nowhere else.  Nothing here runs at import
@@ -40,6 +42,8 @@ SOURCES = {
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_wgmma":
+        "flash_attention/csrc/flash_attention_bwd_wgmma.cu",
     "flash_decode": "flash_attention/csrc/flash_decode.cu",
     "embedding_bag": "embedding_bag/csrc/embedding_bag.cu",
 }
@@ -66,6 +70,14 @@ def _source(name: str) -> Path:
     return _KERNELS / SOURCES[name]
 
 
+def _stamp(name: str) -> float:
+    """Newest modification time of kernel ``name``'s source and of the
+    headers beside it (which it may include)."""
+    src = _source(name)
+    return max([src.stat().st_mtime]
+               + [h.stat().st_mtime for h in src.parent.glob("*.cuh")])
+
+
 def _lib_path(name: str) -> Path:
     return _source(name).parent.parent / "_build" / f"lib{name}.so"
 
@@ -88,7 +100,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     names = list(SOURCES) if names is None else list(names)
     todo = [nm for nm in names
             if not _lib_path(nm).exists()
-            or _lib_path(nm).stat().st_mtime < _source(nm).stat().st_mtime]
+            or _lib_path(nm).stat().st_mtime < _stamp(nm)]
     if not todo:
         return {}
     nvcc = _nvcc()

@@ -9,11 +9,22 @@ Two forward sources, one function:
   configs.
 
 :func:`attention_route` picks one from ``(dtype, D)`` alone, never from a
-failure.  The backward, ``csrc/flash_attention_bwd.cu`` (fp32 FMA, both
-dtypes, every head dim), is :func:`flash_attention_bwd_cuda`, counted in
-``launches["flash_attention_bwd"]``; :func:`.ops.attention` calls it from
-its autograd path.  Both are built and loaded by :mod:`repro_torch.kernels.cuda_build`
-(``nvcc`` for ``sm_90a`` on first use, ``ctypes``).  The launchers take
+failure.  The tensor-core forward can also store each row's logsumexp
+(``return_lse=True``), which the tensor-core backward reads.
+
+Two backward sources, picked by :func:`attention_bwd_route` the same way:
+
+* ``csrc/flash_attention_bwd_wgmma.cu`` — bf16 at head dims 64 and 128 on
+  the tensor cores (:func:`flash_attention_bwd_wgmma_cuda`, counted in
+  ``launches["flash_attention_bwd"]`` and
+  ``launches["flash_attention_bwd_wgmma"]``): the LM's training backward;
+* ``csrc/flash_attention_bwd.cu`` — FP32 FMA, both dtypes, every head dim
+  (:func:`flash_attention_bwd_cuda`, counted in
+  ``launches["flash_attention_bwd"]``): the rest, D 256 included.
+
+:func:`.ops.attention` calls them from its autograd path.  All are built
+and loaded by :mod:`repro_torch.kernels.cuda_build` (``nvcc`` for
+``sm_90a`` on first use, ``ctypes``).  The launchers take
 tensors on the card, check them, allocate the output, launch on
 ``torch.cuda.current_stream()`` and count the launch in
 ``cuda_build.launches["flash_attention"]`` (either route) and, for the
@@ -23,6 +34,7 @@ at import time.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -32,13 +44,17 @@ from repro_torch.kernels import cuda_build
 
 __all__ = ["flash_attention_cuda", "flash_attention_fma_cuda",
            "flash_attention_wgmma_cuda", "flash_attention_bwd_cuda",
-           "attention_route", "strided_ok",
-           "HEAD_DIMS", "WGMMA_HEAD_DIMS", "DTYPES"]
+           "flash_attention_bwd_wgmma_cuda", "attention_route",
+           "attention_bwd_route", "strided_ok", "lse_stores",
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BWD_HEAD_DIMS", "DTYPES"]
 
 #: head dims the FMA kernel is instantiated for
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 #: head dims of the tensor-core kernel (bf16 only)
 WGMMA_HEAD_DIMS = (64, 128, 256)
+#: head dims of the tensor-core backward (bf16 only): at D 256 its dK and
+#: dV accumulators alone would take 256 registers a thread
+WGMMA_BWD_HEAD_DIMS = (64, 128)
 #: element types the kernels take (q, k, v and out alike) → dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,7 +66,7 @@ _SIGNATURES = {
     "flash_attention_error": ([_I32], ctypes.c_char_p),
 }
 _WGMMA_SIGNATURES = {
-    "flash_attention_wgmma": ([_P] * 4 + [_I64] * 12
+    "flash_attention_wgmma": ([_P] * 5 + [_I64] * 12
                               + [_I32] * 6 + [_F, _I32, _I32, _F, _P], _I32),
     "flash_attention_wgmma_error": ([_I32], ctypes.c_char_p),
 }
@@ -59,6 +75,17 @@ _BWD_SIGNATURES = {
                                                       _P], _I32),
     "flash_attention_bwd_error": ([_I32], ctypes.c_char_p),
 }
+_BWD_WGMMA_SIGNATURES = {
+    "flash_attention_bwd_wgmma": ([_P] * 10 + [_I64] * 15 + [_I32] * 6
+                                  + [_F, _I32, _I32, _F, _P], _I32),
+    "flash_attention_bwd_wgmma_rows": ([_I32], _I32),
+    "flash_attention_bwd_wgmma_error": ([_I32], ctypes.c_char_p),
+}
+
+#: tensor-core forward launches that stored the rows' logsumexp (the
+#: autograd path's), under ``"flash_attention_wgmma"``; prefill and serving
+#: store none
+lse_stores: collections.Counter = collections.Counter()
 
 
 def attention_route(dtype: torch.dtype, D: int) -> str:
@@ -72,6 +99,17 @@ def attention_route(dtype: torch.dtype, D: int) -> str:
         raise ValueError(f"head dim {D} not supported; the kernels are "
                          f"built for {HEAD_DIMS}")
     return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+        else "fma"
+
+
+def attention_bwd_route(dtype: torch.dtype, D: int) -> str:
+    """Which backward serves ``(dtype, D)``: ``"wgmma"`` (bf16 on the
+    tensor cores, ``D`` in :data:`WGMMA_BWD_HEAD_DIMS`) or ``"fma"`` (the
+    FP32 FMA kernel: fp32, D 8-32, and D 256, whose dK and dV
+    accumulators do not fit the tensor-core kernel's registers).  Raises
+    for what neither takes."""
+    attention_route(dtype, D)  # raises for what no kernel takes
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS \
         else "fma"
 
 
@@ -185,21 +223,29 @@ def flash_attention_fma_cuda(q, k, v, *, scale=None, causal=True, window=0,
     return out
 
 
+def _check_strided(t: torch.Tensor, what: str, device):
+    _check_kind(t, what, torch.bfloat16, device)
+    if not strided_ok(t):
+        raise ValueError(f"{what}: the tensor-core kernels need a "
+                         "contiguous last dim and strides that are "
+                         f"multiples of 8 elements, got {t.stride()}")
+
+
 def flash_attention_wgmma_cuda(q, k, v, *, scale=None, causal=True,
-                               window=0, softcap=0.0) -> torch.Tensor:
+                               window=0, softcap=0.0, return_lse=False):
     """The tensor-core kernel (``csrc/flash_attention_wgmma.cu``) on bf16
     (B, H, S, D) views that :func:`strided_ok` accepts, ``D`` in
     :data:`WGMMA_HEAD_DIMS`.  The output has q's memory layout (a (B, S, H,
-    D) buffer seen as (B, H, S, D) when q is one)."""
+    D) buffer seen as (B, H, S, D) when q is one).  With ``return_lse``
+    the result is ``(out, lse)``: lse fp32 (B, Hq, Sq), each row's
+    logsumexp of its scaled (capped) scores, +1e30 where every key is
+    masked (:func:`.ref.attention_lse_ref`); otherwise the kernel stores
+    only ``out``."""
     if not q.is_cuda:
         raise ValueError("flash_attention: q must be a CUDA tensor")
     dev = q.device
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        _check_kind(t, what, torch.bfloat16, dev)
-        if not strided_ok(t):
-            raise ValueError(f"{what}: the tensor-core kernel needs a "
-                             "contiguous last dim and strides that are "
-                             f"multiples of 8 elements, got {t.stride()}")
+        _check_strided(t, what, dev)
     B, Hq, Hkv, Sq, Skv, D = _check_shapes(q, k, v, WGMMA_HEAD_DIMS)
     if scale is None:
         scale = D ** -0.5
@@ -207,17 +253,23 @@ def flash_attention_wgmma_cuda(q, k, v, *, scale=None, causal=True,
     out = torch.empty_like(q)  # preserves a dense q's strides
     if not strided_ok(out):
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flash_attention_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            B, Hq, Hkv, Sq, Skv, D, float(scale), int(bool(causal)),
-            int(window), float(softcap), stream)
+            None if lse is None else lse.data_ptr(), *_strides(q),
+            *_strides(k), *_strides(v), *_strides(out), B, Hq, Hkv, Sq,
+            Skv, D, float(scale), int(bool(causal)), int(window),
+            float(softcap), stream)
     cuda_build.check_launch(lib, "flash_attention_wgmma", rc)
     cuda_build.launches["flash_attention"] += 1
     cuda_build.launches["flash_attention_wgmma"] += 1
-    return out
+    if lse is None:
+        return out
+    lse_stores["flash_attention_wgmma"] += 1
+    return out, lse
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, scale=None, causal=True,
@@ -260,4 +312,57 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, scale=None, causal=True,
             float(softcap), stream)
     cuda_build.check_launch(lib, "flash_attention_bwd", rc)
     cuda_build.launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_wgmma_cuda(q, k, v, out, dout, lse, *, scale=None,
+                                   causal=True, window=0, softcap=0.0):
+    """Launch the tensor-core backward (``csrc/flash_attention_bwd_wgmma.cu``):
+    the gradients (dq, dk, dv) of :func:`.ref.attention_ref`'s output
+    ``out`` against ``dout``, given the forward's ``lse``
+    (:func:`flash_attention_wgmma_cuda` with ``return_lse=True``).  q, k,
+    v, out and dout are bf16 (B, H, S, D) views that :func:`strided_ok`
+    accepts (the LM's transposed projections as they are), ``D`` in
+    :data:`WGMMA_BWD_HEAD_DIMS`; lse is fp32 (B, Hq, Sq) contiguous.  dq,
+    dk and dv come out contiguous bf16; ``dk`` and ``dv`` sum each KV
+    head's query group.  P and dS enter the tensor cores as bf16, every sum
+    is fp32 and taken in a fixed order (no atomics: a repeat gives the same
+    bits).  One call is two kernels (dq with the rows' delta, then dk and
+    dv), counted once in ``launches["flash_attention_bwd"]`` and once in
+    ``launches["flash_attention_bwd_wgmma"]``.  Raises for anything else,
+    and for an input that requires grad while grad mode is on."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd: q must be a CUDA tensor")
+    cuda_build.refuse_grad(
+        "flash_attention_bwd_wgmma", (q, k, v, out, dout, lse),
+        "the backward kernels take no second-order gradient")
+    dev = q.device
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (dout, "dout")):
+        _check_strided(t, what, dev)
+    B, Hq, Hkv, Sq, Skv, D = _check_shapes(q, k, v, WGMMA_BWD_HEAD_DIMS)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    cuda_build.check_tensor(lse, "lse", torch.float32, (B, Hq, Sq), dev)
+    if scale is None:
+        scale = D ** -0.5
+    lib = cuda_build.load("flash_attention_bwd_wgmma", _BWD_WGMMA_SIGNATURES)
+    rows = lib.flash_attention_bwd_wgmma_rows(Sq)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=dev)
+                  for t in (q, k, v))
+    scratch = torch.empty(B * Hq * rows * 2, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_attention_bwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch.data_ptr(), *_strides(q), *_strides(k),
+            *_strides(v), *_strides(out), *_strides(dout), B, Hq, Hkv, Sq,
+            Skv, D, float(scale), int(bool(causal)), int(window),
+            float(softcap), stream)
+    cuda_build.check_launch(lib, "flash_attention_bwd_wgmma", rc)
+    cuda_build.launches["flash_attention_bwd"] += 1
+    cuda_build.launches["flash_attention_bwd_wgmma"] += 1
     return dq, dk, dv

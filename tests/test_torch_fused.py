@@ -252,6 +252,7 @@ def test_cuda_kernel_loader_is_lazy():
                                        "tocab_spmm", "flash_attention",
                                        "flash_attention_wgmma",
                                        "flash_attention_bwd",
+                                       "flash_attention_bwd_wgmma",
                                        "flash_decode", "embedding_bag"}
     for name in cuda_build.SOURCES:
         src = cuda_build._source(name)
