@@ -230,8 +230,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``binned_embedding_grad`` against the flat sum (``SUM_RTOL`` of each
    row's sum of magnitudes).  The ``kernels`` record gains the
    ``flash_attention_bwd`` row, its launches from (a)'s 12 steps.
+14. Distribution, after phase 13 (``repro_torch.dist``,
+   ``train/trainer.py`` on a mesh): a one-rank NCCL group on the card
+   (``FileStore``, no network; NCCL that cannot start fails the phase, no
+   gloo fallback) and ``make_mesh_for()``, a (1, 1) ("data", "model")
+   mesh on ``cuda``.  (a) ``dist_train``: TinyLlama-1.1B at its published
+   config, 8 × 512, AdamW, 3 steps through ``Trainer(mesh=mesh)`` (every
+   gradient leaf through ``all_reduce`` over the ``data`` group) against
+   ``Trainer(mesh=None)`` from the same seed, both under
+   ``torch.use_deterministic_algorithms``: losses and every parameter
+   bit-equal, ``flash_attention`` and ``flash_attention_bwd`` 22 times a
+   step, ms a step of both.  (b) ``dist_compress``: one step's gradients
+   through ``make_dp_grad_fn(compress=True)`` twice (a non-zero residual):
+   gradients ``(g + r).to(bf16).float()`` and residual ``(g + r) - that``
+   bit for bit; ms of the plain, uncompressed and compressed gradient,
+   peak memory.  (c) ``dist_topk``: ``distributed_topk`` at BERT4Rec's
+   serve shape (512 × 10⁶ fp32 scores from the published model, k 100, 8
+   blocks, plain-tensor form) and on the scores rounded to 16 values:
+   values and ids those of a stable descending sort of each row;
+   ``bert4rec_score`` under a ``model`` axis of 8 alike; ms against
+   ``torch.topk``.  (d) ``dist_reshard``: TinyLlama's parameters
+   ``reshard``-ed onto the mesh and back, a checkpoint saved from the mesh
+   and restored with ``shardings=``: bit-equal.  The ``kernels`` record's
+   rows 4 and 7 gain (a)'s launches (``launches_dist_train``).
    Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
-   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b) and 13 must end with no
+   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b), 13 and 14 must end with no
    ``resilience.*`` counter moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
@@ -241,9 +264,11 @@ detail (each case's error, the compiler's register report) to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2900,7 +2925,7 @@ def phase_score_retry(b4: dict):
 #: Granite-MoE-3B-A800M at its published config (32 layers)
 MOE_ARCH = "granite-moe-3b-a800m"
 #: Mixtral-8x22B at its published width; 56 layers would be ~281 GB in
-#: bf16, more than one card holds (sharding is ROADMAP A12)
+#: bf16, more than one card holds (sharding a model is ROADMAP A12b)
 MIXTRAL_ARCH = "mixtral-8x22b"
 MIXTRAL_LAYERS = 2
 
@@ -4171,6 +4196,381 @@ def phase_training(seed: int, log, bwd_row: dict) -> dict:
     return {"lm": lm, "seconds": secs}
 
 
+# --------------------------------------------------------------------- #
+# phase 14: distribution on a one-rank NCCL mesh
+# --------------------------------------------------------------------- #
+#: 3 AdamW steps of TinyLlama-1.1B, 8 × 512, with and without a mesh
+DIST_STEPS = 3
+#: rounds of the three gradient functions timed in turns (the first warms)
+DIST_GRAD_ROUNDS = 5
+#: BERT4Rec's serve shape for the two-stage top-k: 512 users × 10⁶ items,
+#: top 100, the items cut into 8 blocks (the plain-tensor form); the
+#: tie-laden case rounds the scores to 16 values
+DIST_TOPK_USERS, DIST_TOPK_K, DIST_TOPK_BLOCKS, DIST_TIE_LEVELS = \
+    512, 100, 8, 16
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for the block (the
+    embedding's and the loss gather's backward add with atomics otherwise,
+    so two runs of one step would differ in their last bits)."""
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def dist_train(seed: int, mesh, log) -> dict:
+    """(a) TinyLlama-1.1B at its published width, 8 × 512, AdamW with the
+    launcher's cosine schedule, 3 steps through ``Trainer(mesh=mesh)``
+    (the data-parallel step: the batch's block, the denominators and every
+    gradient leaf through ``all_reduce`` over the mesh's ``data`` group,
+    NCCL) against ``Trainer(mesh=None)`` from the same seed: losses and
+    every parameter bit-equal (a sum over one rank is its one term, the
+    mean divides by nothing); ``flash_attention`` and
+    ``flash_attention_bwd`` 22 times a step on the mesh."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    B, S = 8, 512
+
+    def run(m):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = tfm.init_params(cfg, gen, dev)
+        batches = synthetic_lm_batches(B, S, cfg.vocab, seed=seed,
+                                       device=dev, mesh=m)
+        tr = Trainer(loss_fn=lambda p, b: tfm.loss_fn(p, b, cfg),
+                     optimizer=adamw(cosine_schedule(3e-4, 20, DIST_STEPS)),
+                     mesh=m, denominator=(lambda b: tfm.loss_denominator(
+                         b, cfg)) if m is not None else None)
+        p, st = tr.init_state(params)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        with deterministic():
+            p, st, hist = tr.run(p, st, batches, num_steps=DIST_STEPS,
+                                 log_every=1, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        del st
+        return p, hist, launches, peak
+
+    t0 = time.perf_counter()
+    p_one, h_one, l_one, peak_one = run(None)
+    # held on the host, so that the two runs' peaks are comparable
+    p_one = [x.cpu() for x in tree_leaves(p_one)]
+    torch.cuda.empty_cache()
+    p_dp, h_dp, l_dp, peak_dp = run(mesh)
+    same = [torch.equal(a, b.cpu()) for a, b in zip(p_one,
+                                                    tree_leaves(p_dp))]
+    del p_one, p_dp
+    torch.cuda.empty_cache()
+    want = cfg.n_layers * DIST_STEPS
+    rec = {"phase": "dist_train", "arch": LM_ARCH, "batch": B, "seq": S,
+           "steps": DIST_STEPS, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                 mesh.mesh.shape)),
+           "backend": torch.distributed.get_backend(),
+           "losses_one_device": [h["loss"] for h in h_one],
+           "losses_mesh": [h["loss"] for h in h_dp],
+           "losses_bit_equal": [h["loss"] for h in h_one] == [
+               h["loss"] for h in h_dp],
+           "params_bit_equal": all(same), "param_leaves": len(same),
+           "step_ms_one_device": [1e3 * h["dt"] for h in h_one],
+           "step_ms_mesh": [1e3 * h["dt"] for h in h_dp],
+           "peak_memory_gb_one_device": peak_one / 1e9,
+           "peak_memory_gb_mesh": peak_dp / 1e9,
+           "launches_one_device": l_one, "launches_mesh": l_dp,
+           "launches_per_step_mesh": {
+               n: l_dp.get(n, 0) / DIST_STEPS
+               for n in ("flash_attention", "flash_attention_bwd")},
+           "deterministic_algorithms": True,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (rec["losses_bit_equal"] and rec["params_bit_equal"]):
+        raise AssertionError(f"the one-rank mesh is not the one-device "
+                             f"step bit for bit: {rec}")
+    for launches in (l_one, l_dp):
+        if any(launches.get(n, 0) != want for n in (
+                "flash_attention", "flash_attention_bwd")):
+            raise AssertionError(f"3 steps launched {launches}; want "
+                                 f"flash_attention = flash_attention_bwd "
+                                 f"= {want}")
+    return rec
+
+
+def dist_compress(seed: int, mesh, log) -> dict:
+    """(b) One TinyLlama step's gradients through ``make_dp_grad_fn(...,
+    compress=True)`` on the mesh, applied twice so that the residual is
+    non-zero: the gradients equal ``(g + r).to(bf16).float()`` and the new
+    residual ``(g + r) - that``, bit for bit, leaf by leaf (``g`` from
+    the same step with no mesh).  Then host ms (synchronised; 5 rounds of
+    one call each, in turns; the median of rounds 2-5) of the plain
+    gradient, the uncompressed and the compressed function, and the
+    compressed call's peak memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.dist.collectives import (init_error_feedback,
+                                              make_dp_grad_fn)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import _value_and_grad
+    from repro_torch.train.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    batch = next(synthetic_lm_batches(8, 512, cfg.vocab, seed=seed,
+                                      device=dev, mesh=mesh))
+
+    def loss_fn(p, b):
+        return tfm.loss_fn(p, b, cfg)
+
+    fn_c = make_dp_grad_fn(loss_fn, mesh, "data", compress=True)
+    fn_e = make_dp_grad_fn(loss_fn, mesh, "data", compress=False)
+    bad = []
+    with deterministic():
+        _, _, g = _value_and_grad(loss_fn, params, batch)
+        _, r1, _ = fn_c(params, batch, init_error_feedback(params, 1))
+        torch.cuda.reset_peak_memory_stats()
+        g2, r2, loss2 = fn_c(params, batch, r1)
+        torch.cuda.synchronize()
+        peak_c = torch.cuda.max_memory_allocated()
+        nonzero = 0
+        for i, (gi, ri, g2i, r2i) in enumerate(zip(
+                tree_leaves(g), tree_leaves(r1), tree_leaves(g2),
+                tree_leaves(r2))):
+            corrected = gi.float() + ri
+            wire = corrected.to(torch.bfloat16).float()
+            if not (torch.equal(g2i, wire)
+                    and torch.equal(r2i, corrected - wire)):
+                bad.append(i)
+            nonzero += int(bool(ri.abs().sum() > 0))
+        n_leaves = len(tree_leaves(g))
+        del g, r1, g2, r2, corrected, wire
+        torch.cuda.empty_cache()
+
+        res = init_error_feedback(params, 1)
+        fns = {"plain": lambda: _value_and_grad(loss_fn, params, batch),
+               "uncompressed": lambda: fn_e(params, batch, res),
+               "compressed": lambda: fn_c(params, batch, res)}
+        ms = {k: [] for k in fns}
+        for _ in range(DIST_GRAD_ROUNDS):  # in turns, one of each a round
+            for k, f in fns.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                ms[k].append(1e3 * (time.perf_counter() - t))
+    del params, res
+    torch.cuda.empty_cache()
+    rec = {"phase": "dist_compress", "arch": LM_ARCH, "leaves": n_leaves,
+           "leaves_not_bit_equal": bad, "leaves_with_nonzero_residual":
+               nonzero, "loss": float(loss2),
+           "ms_all": ms, "ms": {k: statistics.median(v[1:])
+                                for k, v in ms.items()},
+           "peak_memory_gb_compressed": peak_c / 1e9,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if bad or nonzero == 0:
+        raise AssertionError(f"compressed gradients: {rec}")
+    return rec
+
+
+def dist_topk(seed: int, log) -> dict:
+    """(c) ``distributed_topk`` at BERT4Rec's serve shape: the fp32 scores
+    of 512 users against 10⁶ items from the published model (random
+    weights from ``seed``), k = 100, in 8 blocks (the plain-tensor form),
+    and the same scores rounded to 16 values (ties everywhere): values and
+    ids exactly those of a stable descending sort of each whole row (what
+    ``lax.top_k`` returns).  ``bert4rec_score`` under ``use_mesh_rules``
+    with a ``model`` axis of 8 gives the same.  Device ms (CUDA events)
+    of the two-stage top-k, ``torch.topk`` and the full stable sort."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import make_cloze_batch
+    from repro_torch.dist.collectives import distributed_topk
+    from repro_torch.dist.sharding import use_mesh_rules
+    from repro_torch.models import bert4rec as b4
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    cfg = get_arch("bert4rec").make_model_cfg()
+    t0 = time.perf_counter()
+    params = b4.init_bert4rec(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    users = make_cloze_batch(np.random.default_rng(seed), DIST_TOPK_USERS,
+                             cfg.max_len, cfg.vocab, cfg.mask_id,
+                             device=dev)["items"]
+    p = b4.cast_params(params, torch.bfloat16)
+    user = b4.bert4rec_encode(p, users, cfg, dtype=torch.bfloat16)[:, -1, :]
+    scores = (user @ p["item_emb"][: cfg.vocab].T).float()
+    del p, user
+    mesh = {"data": 1, "model": DIST_TOPK_BLOCKS}
+    k = DIST_TOPK_K
+    lo, hi = scores.min(), scores.max()
+    tied = torch.round((scores - lo) / (hi - lo) * (DIST_TIE_LEVELS - 1))
+    rec = {"phase": "dist_topk", "users": DIST_TOPK_USERS,
+           "items": cfg.vocab, "k": k, "blocks": DIST_TOPK_BLOCKS,
+           "cases": {}}
+    for name, x in [("scores", scores), ("tied_16_values", tied)]:
+        v, i = distributed_topk(x, k, mesh)
+        sv, si = torch.sort(x, dim=-1, descending=True, stable=True)
+        case = {"values_equal": torch.equal(v, sv[:, :k]),
+                "ids_equal": torch.equal(i, si[:, :k]),
+                "distinct_values_in_top_k": int(torch.unique(v).numel()),
+                "ms": cuda_ms(lambda: distributed_topk(x, k, mesh), 5),
+                "torch_topk_ms": cuda_ms(lambda: torch.topk(x, k), 5),
+                "stable_sort_ms": cuda_ms(lambda: torch.sort(
+                    x, dim=-1, descending=True, stable=True), 3)}
+        del sv, si
+        rec["cases"][name] = case
+    with use_mesh_rules(mesh):
+        v, i = b4.bert4rec_score(params, users, cfg, top_k=k)
+    sv, si = torch.sort(scores, dim=-1, descending=True, stable=True)
+    rec["bert4rec_score_equal"] = bool(torch.equal(v, sv[:, :k])
+                                       and torch.equal(i, si[:, :k]))
+    del params, scores, tied, sv, si
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if not rec["bert4rec_score_equal"] or not all(
+            c["values_equal"] and c["ids_equal"]
+            for c in rec["cases"].values()):
+        raise AssertionError(f"two-stage top-k: {rec}")
+    return rec
+
+
+def dist_reshard(seed: int, mesh, log) -> dict:
+    """(d) TinyLlama's parameters through ``reshard`` onto the mesh
+    (replicated DTensors) and back (their full tensors), then a checkpoint
+    saved from the mesh (``train.checkpoint.save`` of the DTensor tree,
+    4.1 GB) and restored with ``shardings=`` (the mesh and its
+    placements): every leaf bit-equal."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.elastic import reshard
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    on_mesh = reshard(params, mesh)
+    kinds = {type(x).__name__ for x in tree_leaves(on_mesh)}
+    back = tree_map(lambda x: x.full_tensor(), on_mesh)
+    round_trip = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                       tree_leaves(back)))
+    del back
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        ckpt.save(d, 1, on_mesh)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        restored, step, _ = ckpt.restore(
+            d, on_mesh, shardings=(mesh, [Replicate()] * mesh.ndim))
+        restore_s = time.perf_counter() - t1
+        size = sum(os.path.getsize(os.path.join(d, "step_00000001", f))
+                   for f in os.listdir(os.path.join(d, "step_00000001")))
+    restored_ok = step == 1 and all(
+        isinstance(x, DTensor) and x.device_mesh == mesh
+        and torch.equal(x.full_tensor(), p)
+        for x, p in zip(tree_leaves(restored), tree_leaves(params)))
+    n = len(tree_leaves(params))
+    del params, on_mesh, restored
+    torch.cuda.empty_cache()
+    rec = {"phase": "dist_reshard", "arch": LM_ARCH, "leaves": n,
+           "leaf_types_on_mesh": sorted(kinds),
+           "reshard_round_trip_bit_equal": round_trip,
+           "checkpoint_restored_bit_equal": restored_ok,
+           "checkpoint_bytes": size, "save_seconds": save_s,
+           "restore_seconds": restore_s,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (round_trip and restored_ok and kinds == {"DTensor"}):
+        raise AssertionError(f"reshard / restore onto the mesh: {rec}")
+    return rec
+
+
+def phase_distribution(seed: int, log, records: list) -> dict:
+    """Phase 14: a one-rank NCCL group on the card (a ``FileStore``, no
+    network), ``make_mesh_for()`` → a (1, 1) ("data", "model") mesh on
+    ``cuda``; then (a) ``dist_train``, (b) ``dist_compress``, (c)
+    ``dist_topk``, (d) ``dist_reshard``; the group is destroyed at the
+    end.  NCCL that cannot start fails the phase (no gloo fallback).  Rows
+    4 and 7 of the ``kernels`` record gain (a)'s launches on the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.elastic import make_mesh_for
+
+    t0 = time.perf_counter()
+    store_dir = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir.name, "store"),
+                                     1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+        mesh = make_mesh_for()
+        if mesh.device_type != "cuda" or tuple(mesh.mesh.shape) != (1, 1) \
+                or mesh.mesh_dim_names != ("data", "model"):
+            raise AssertionError(f"mesh {mesh}")
+        emit({"phase": "dist_mesh", "backend": dist.get_backend(),
+              "mesh": str(mesh), "device_type": mesh.device_type,
+              "init_seconds": time.perf_counter() - t0})
+        train = dist_train(seed, mesh, log)
+        torch.cuda.empty_cache()
+        dist_compress(seed, mesh, log)
+        torch.cuda.empty_cache()
+        dist_topk(seed, log)
+        torch.cuda.empty_cache()
+        dist_reshard(seed, mesh, log)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store_dir.cleanup()
+    for row in records:
+        if row["name"] in ("flash_attention", "flash_attention_bwd"):
+            row["launches_dist_train"] = train["launches_mesh"].get(
+                row["name"], 0)
+            row["dist_train_steps"] = DIST_STEPS
+    secs = time.perf_counter() - t0
+    emit({"phase": "distribution_seconds", "seconds": secs})
+    return {"train": train, "seconds": secs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -4283,6 +4683,10 @@ def main(argv=None) -> int:
     phase_training(SEED, log, bwd_row)
     check_quiet("phase 13", quiet)
     records.append(bwd_row)
+    torch.cuda.empty_cache()
+    quiet = resilience_total()
+    phase_distribution(SEED, log, records)
+    check_quiet("phase 14", quiet)
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

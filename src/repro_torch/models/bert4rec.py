@@ -10,8 +10,11 @@ dict shaped as the reference's tree (``item_emb``, ``pos_emb``, a
 ``blocks`` list, ``ln_out``, ``b_ln_out``).
 
 Scores, top-k and gathers are torch ops, as they are XLA ops in the
-reference: no TPU kernel runs on this path.  Without a device mesh the
-reference's ``shard`` calls do nothing, and the port has none.  Training:
+reference: no TPU kernel runs on this path.  The reference's ``shard``
+calls are not made yet (models on a mesh are ROADMAP A12b); under
+``use_mesh_rules`` on a mesh with a ``model`` axis, :func:`bert4rec_score`
+takes the two-stage :func:`~repro_torch.dist.collectives.distributed_topk`,
+as the reference's does.  Training:
 :func:`bert4rec_loss_fn` (the full softmax below 50,000 items, the sampled
 softmax with shared negatives above) and :func:`binned_embedding_grad`
 (the embedding gradient sorted by row bin, then summed in that fixed
@@ -25,11 +28,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import distributed_topk
+from repro_torch.dist.sharding import current_mesh, mesh_axis_sizes
+
 from .layers import _normal, cross_entropy_loss, init_dense
 
 __all__ = ["Bert4RecCfg", "init_bert4rec", "params_from_numpy",
            "cast_params", "param_count", "bert4rec_encode", "bert4rec_score",
-           "bert4rec_retrieve", "bert4rec_loss_fn", "binned_embedding_grad"]
+           "bert4rec_retrieve", "bert4rec_loss_fn", "loss_denominator",
+           "binned_embedding_grad"]
 
 Tensor = torch.Tensor
 
@@ -176,10 +183,16 @@ def bert4rec_score(params: dict, items: Tensor, cfg: Bert4RecCfg,
                    top_k: int = 100) -> tuple:
     """Online/offline scoring: the bf16 hidden state at the last position
     (it holds MASK) against every item → the top ``top_k`` fp32 scores and
-    their item ids, (B, top_k) each.  Ties come in no promised order."""
+    their item ids, (B, top_k) each.  Off a mesh ties come in no promised
+    order; on a mesh with a ``model`` axis the two-stage top-k gives
+    ``lax.top_k``'s (the lower id first)."""
     p = cast_params(params, torch.bfloat16)
     user = bert4rec_encode(p, items, cfg, dtype=torch.bfloat16)[:, -1, :]
     scores = (user @ p["item_emb"][: cfg.vocab].T).float()  # (B, V)
+    # §Perf H2: the two-stage top-k (the reference's choice on a mesh)
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh_axis_sizes(mesh):
+        return distributed_topk(scores, top_k, mesh)
     return torch.topk(scores, top_k, dim=-1)
 
 
@@ -226,6 +239,15 @@ def bert4rec_loss_fn(params: dict, batch: dict, cfg: Bert4RecCfg) -> tuple:
     w = batch["pos_weight"].float()
     loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
     return loss, {"ce": loss}
+
+
+def loss_denominator(batch: dict, cfg: Bert4RecCfg) -> Tensor:
+    """The count :func:`bert4rec_loss_fn` divides by on ``batch``: the
+    cloze ``label_mask``'s sum (full softmax) or ``pos_weight``'s (sampled
+    softmax).  The ranks' blocks differ in it, so a data-parallel step
+    weighs their losses by it."""
+    key = "pos_weight" if cfg.sampled_softmax else "label_mask"
+    return batch[key].float().sum()
 
 
 def binned_embedding_grad(token_ids: Tensor, grads: Tensor, table_size: int,

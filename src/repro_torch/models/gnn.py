@@ -16,9 +16,13 @@ JAX's ``segment_max`` does.
 
 Parameters are nested dicts and lists of fp32 tensors shaped as the
 reference's trees; :func:`params_from_numpy` carries the reference's
-parameters across.  The reference's ``shard(...)`` annotations are
-dropped (one device), and ``binned_edges`` / ``binned_triplets`` take the
-flat reduce, as the reference's ``_binned_segment_sum`` does off a mesh.
+parameters across.  The reference's ``shard(...)`` annotations are not
+made yet (models on a mesh are ROADMAP A12b).  ``binned_edges`` /
+``binned_triplets`` take :func:`_binned_segment_sum`: under
+``use_mesh_rules`` on a mesh whose ``data`` axis is > 1 the edge → node sum
+is stripe-local (rank ``r`` sums the values whose destinations lie in its
+stripe of nodes, with no collective); off a mesh, or where the shapes do
+not divide, it is the flat reduce, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,8 +34,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.core import tocab
 from repro_torch.core.partition import BlockedGraph
+from repro_torch.dist.sharding import current_mesh, mesh_axis_sizes
 
 from .layers import _normal, init_dense
 
@@ -41,7 +48,7 @@ __all__ = [
     "GraphBatch", "GNNConfig", "build_triplets", "params_from_numpy",
     "init_gat", "gat_forward", "init_gin", "gin_forward",
     "init_sage", "sage_forward", "init_dimenet", "dimenet_forward",
-    "gnn_loss_fn", "init_gnn", "gnn_forward",
+    "gnn_loss_fn", "loss_denominator", "init_gnn", "gnn_forward",
 ]
 
 
@@ -101,15 +108,63 @@ class GNNConfig:
 
 
 def _agg(vals_e: Tensor, dst: Tensor, n: int, bg: Optional[BlockedGraph],
-         reduce: str = "sum") -> Tensor:
-    """Edge values → node aggregate, via TOCAB or flat segment reduce; a
-    padded edge (``dst = n``) is dropped, as ``jax.ops.segment_*`` drop
-    ids outside ``[0, n)``."""
+         reduce: str = "sum", binned: bool = False) -> Tensor:
+    """Edge values → node aggregate, via TOCAB or flat segment reduce.
+    ``binned`` engages the stripe-local reduce (sum only) under the
+    sorted-by-destination-stripe layout contract."""
     if bg is not None:
         return tocab.tocab_edge_reduce(bg, vals_e, reduce=reduce)
-    dst = dst.long()
-    dst = torch.where((dst >= 0) & (dst < n), dst, n)
-    return tocab.segment_reduce(vals_e, dst, n + 1, reduce)[:n]
+    if binned and reduce == "sum" and vals_e.ndim == 2:
+        return _binned_segment_sum(vals_e, dst, n)
+    return _flat_reduce(vals_e, dst, n, reduce)
+
+
+def _flat_reduce(vals: Tensor, seg: Tensor, n: int, reduce: str) -> Tensor:
+    """``segment_reduce`` into ``n`` rows; an id outside ``[0, n)`` (a padded
+    edge's ``n``) is dropped, as ``jax.ops.segment_*`` drop it."""
+    seg = seg.long()
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)
+    return tocab.segment_reduce(vals, seg, n + 1, reduce)[:n]
+
+
+def _binned_segment_sum(vals, seg, n_out: int):
+    """Stripe-local segment sum under the binned-by-stripe contract
+    (§Perf H4): on a mesh with ``data`` = S > 1, the values of block ``r``
+    (of S equal blocks along dim 0) have their destinations in stripe ``r``
+    of the ``n_out`` rows, so block ``r`` sums at ``seg - r·n_out/S`` into
+    its stripe with no collective, and a value outside its stripe is
+    dropped, as the reference's ``shard_map`` drops it.  A DTensor sharded
+    on dim 0 over ``data`` sums its local block and returns the rank's
+    stripe (a DTensor placed as ``vals``); a plain tensor is the whole
+    array, its blocks summed in one program.  Off a mesh, or when the
+    shapes do not divide, the flat reduce."""
+    mesh = current_mesh()
+    if isinstance(vals, DTensor):
+        mesh = vals.device_mesh
+        names = list(mesh.mesh_dim_names)
+        d = names.index("data") if "data" in names else None
+        if d is not None and vals.placements[d].is_shard(0) \
+                and n_out % mesh.size(d) == 0 \
+                and vals.shape[0] % mesh.size(d) == 0:
+            n_loc = n_out // mesh.size(d)
+            lo = mesh.get_local_rank(d) * n_loc
+            local_seg = seg.to_local() if isinstance(seg, DTensor) else seg
+            out = _flat_reduce(vals.to_local(), local_seg.long() - lo,
+                               n_loc, "sum")
+            return DTensor.from_local(out, mesh, vals.placements,
+                                      run_check=False)
+        vals = vals.full_tensor()
+        seg = seg.full_tensor() if isinstance(seg, DTensor) else seg
+        mesh = None
+    shards = mesh_axis_sizes(mesh).get("data", 1) if mesh is not None else 1
+    if shards <= 1 or vals.shape[0] % shards or n_out % shards:
+        return _flat_reduce(vals, seg, n_out, "sum")
+    n_loc = n_out // shards
+    lo = torch.arange(vals.shape[0], device=vals.device) \
+        // (vals.shape[0] // shards) * n_loc
+    seg = seg.long()
+    keep = (seg >= lo) & (seg < lo + n_loc)
+    return _flat_reduce(vals, torch.where(keep, seg, -1), n_out, "sum")
 
 
 def _ends(batch: GraphBatch) -> tuple:
@@ -189,7 +244,7 @@ def gat_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
         alpha = _edge_softmax(scores, batch.edge_dst, n, batch.edge_mask, bg)
         msgs = _masked_edges(batch, h[src] * alpha[..., None])  # (E, H, D)
         out = _agg(msgs.reshape(msgs.shape[0], -1), batch.edge_dst, n,
-                   bg).reshape(n, heads, d_out)
+                   bg, binned=cfg.binned_edges).reshape(n, heads, d_out)
         x = out.reshape(n, heads * d_out)
         if not last:
             x = F.elu(x)
@@ -219,21 +274,22 @@ def init_gin(generator: torch.Generator, cfg: GNNConfig, device=None) -> dict:
             "head": init_dense(generator, h, cfg.n_classes, device=device)}
 
 
-def _neighbour_sum(x: Tensor, batch: GraphBatch,
-                   bg: Optional[BlockedGraph]) -> Tensor:
+def _neighbour_sum(x: Tensor, batch: GraphBatch, bg: Optional[BlockedGraph],
+                   cfg: GNNConfig) -> Tensor:
     """Σ of x over each node's in-edges: a blocked pull, or masked edge
-    messages through the flat reduce."""
+    messages through the flat (or binned) reduce."""
     if bg is not None:
         return tocab.tocab_pull(bg, x, reduce="sum")
     msgs = _masked_edges(batch, x[_ends(batch)[0]])
-    return _agg(msgs, batch.edge_dst, batch.n, None)
+    return _agg(msgs, batch.edge_dst, batch.n, None,
+                binned=cfg.binned_edges)
 
 
 def gin_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
                 bg: Optional[BlockedGraph] = None) -> Tensor:
     x = batch.node_feat
     for p in params["layers"]:
-        agg = _neighbour_sum(x, batch, bg)
+        agg = _neighbour_sum(x, batch, bg, cfg)
         h = (1.0 + p["eps"]) * x + agg
         h = torch.relu(h @ p["w1"] + p["b1"])
         x = torch.relu(h @ p["w2"] + p["b2"])
@@ -272,7 +328,7 @@ def sage_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
     deg = _agg(ones, batch.edge_dst, batch.n, bg)  # in-degree
     for i, p in enumerate(params["layers"]):
         last = i == len(params["layers"]) - 1
-        s = _neighbour_sum(x, batch, bg)
+        s = _neighbour_sum(x, batch, bg, cfg)
         mean = s / torch.clamp(deg[:, None], min=1.0)
         x = x @ p["w_self"] + mean @ p["w_neigh"]
         if not last:
@@ -373,12 +429,16 @@ def dimenet_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
         # directional (triplet) interaction: m_ji ← Σ_k up[(down m_kj) ⊙ (sbf W)]
         m_down = (m @ wt(blk["w_down"]))[t_kj]
         t_msg = m_down * (sbf @ wt(blk["w_sbf"]))  # (T, nb)
-        t_agg = tocab.segment_reduce(t_msg * tmask, t_ji, E, "sum")
+        if cfg.binned_triplets:
+            t_agg = _binned_segment_sum(t_msg * tmask, t_ji, E)
+        else:
+            t_agg = tocab.segment_reduce(t_msg * tmask, t_ji, E, "sum")
         m = F.silu(m @ wt(blk["w_msg"]) + t_agg @ wt(blk["w_up"])
                    + rbf @ wt(blk["w_rbf"]))
         m = m * emask
     # output: edge → node
-    node_out = _agg(m * (rbf @ wt(params["out_rbf"])), batch.edge_dst, n, bg)
+    node_out = _agg(m * (rbf @ wt(params["out_rbf"])), batch.edge_dst, n, bg,
+                    binned=cfg.binned_edges)
     node_out = node_out.float()
     if cfg.graph_level:
         num_graphs = int(batch.labels.shape[0])
@@ -440,6 +500,16 @@ def gnn_loss_fn(params, batch: GraphBatch, cfg: GNNConfig, bg=None):
         loss = nll.mean()
     acc = (logits.argmax(-1) == labels).float().mean()
     return loss, {"acc": acc}
+
+
+def loss_denominator(batch: GraphBatch, cfg: GNNConfig) -> Tensor:
+    """The count :func:`gnn_loss_fn`'s mean divides by: the node mask's sum
+    for a masked node-level loss, else the number of labels (a
+    data-parallel step weighs the ranks' losses by it)."""
+    if (cfg.arch != "dimenet" or cfg.n_classes != 1) \
+            and not cfg.graph_level and batch.node_mask is not None:
+        return batch.node_mask.float().sum()
+    return torch.tensor(float(batch.labels.numel()))
 
 
 def build_triplets(src: np.ndarray, dst: np.ndarray, n: int,

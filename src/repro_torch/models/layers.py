@@ -9,8 +9,9 @@ and RoPE in fp32).  Attention goes through the port's kernels: the
 prefill/forward path through :func:`~repro_torch.kernels.flash_attention.
 attention` (the ``flash_attention`` kernel on the card) and the decode step
 through :func:`~repro_torch.kernels.flash_attention.flash_decode`.  The
-reference's ``shard(...)`` annotations are dropped: the port runs on one
-device (distribution is ROADMAP A12).  :func:`cross_entropy_loss` is the
+reference's ``shard(...)`` annotations are not made yet: data-parallel
+training keeps every parameter whole on each rank (``train.trainer``), and
+tensor parallelism is ROADMAP A12b.  :func:`cross_entropy_loss` is the
 training loss; every function here is differentiable (on the card the
 attention's gradient is the ``flash_attention_bwd`` kernel).
 """

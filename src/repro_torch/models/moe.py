@@ -12,8 +12,9 @@ tensor is made.
 The reference's two dispatch modes (``global``: one sort over all tokens;
 ``sharded``: one per data shard of a mesh) coincide on one card: off a
 mesh the reference's ``sharded`` mode is one shard.  Both are accepted
-here and both take the single bin pass; token sharding comes with
-distribution (ROADMAP A12).
+here and both take the single bin pass; dispatch across ranks (token and
+expert sharding) is ROADMAP A12b, and data-parallel training refuses a
+mixture of experts (``transformer.loss_denominator``).
 
 Where the port is careful to keep the reference's function:
 
@@ -39,6 +40,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.collectives import stable_topk
 
 from .layers import _normal, init_dense
 
@@ -88,8 +91,7 @@ def route(params: dict, xt: Tensor, cfg: MoECfg) -> tuple:
     if cfg.router_softcap > 0.0:
         logits = cfg.router_softcap * torch.tanh(logits / cfg.router_softcap)
     probs = torch.softmax(logits, dim=-1)
-    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_ids = vals[:, :cfg.top_k], ids[:, :cfg.top_k]
+    gate_vals, expert_ids = stable_topk(probs, cfg.top_k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     return probs, gate_vals, expert_ids
 

@@ -39,7 +39,8 @@ from .layers import (AttnCfg, _normal, attention_block,
 from .moe import MoECfg, init_moe, moe_block
 
 __all__ = ["TransformerCfg", "KVCache", "init_params", "cast_params",
-           "params_from_numpy", "forward", "loss_fn", "serve_prefill",
+           "params_from_numpy", "forward", "loss_fn", "loss_denominator",
+           "serve_prefill",
            "serve_decode",
            "cache_len", "init_cache", "param_count", "default_device"]
 
@@ -327,6 +328,24 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerCfg) -> tuple:
     ce = cross_entropy_loss(logits, labels, mask)
     loss = ce + cfg.moe_aux_coef * aux
     return loss, {"ce": ce, "moe_aux": aux}
+
+
+def loss_denominator(batch: dict, cfg: TransformerCfg) -> Tensor:
+    """The count :func:`loss_fn`'s mean divides by on ``batch``: its target
+    tokens, or the ``loss_mask``'s sum over them (a data-parallel step
+    weighs the ranks' losses by it).  A mixture of experts has none: its
+    load-balancing loss multiplies two means over the batch's tokens, so
+    no weighing of the ranks' losses gives the global batch's."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "data-parallel training of a mixture of experts: its aux loss "
+            "(fraction routed × mean router probability, per expert) has no "
+            "denominator that weighs the ranks' losses into the global "
+            "batch's; token and expert sharding are ROADMAP A12b")
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return torch.tensor(float(batch["tokens"][:, 1:].numel()))
+    return mask[:, 1:].float().sum()
 
 
 def serve_prefill(params: dict, tokens: Tensor, cfg: TransformerCfg

@@ -20,7 +20,14 @@ crash mid-write never corrupts the LATEST checkpoint.  Every leaf's crc32
 a checksum mismatch.  Save and restore retry transient faults
 (:data:`IO_POLICY`, the chaos sites ``ckpt.save`` / ``ckpt.restore``)
 through the port's :mod:`repro_torch.resilience`.  :func:`restore` places
-each leaf on the device of the matching leaf of the target tree.
+each leaf on the device of the matching leaf of the target tree, or, with
+``shardings=``, onto a ``DeviceMesh`` (the elastic restore onto a mesh of
+another size).
+
+On several ranks (``torch.distributed`` initialised, world size > 1) a
+save is collective: every rank calls it, each DTensor leaf is gathered to
+its full tensor, rank 0 alone writes, and every rank waits on a barrier
+before the step counts as written; the format on disk is the same.
 """
 from __future__ import annotations
 
@@ -33,7 +40,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.elastic import is_pair, place, spec_leaves
+from repro_torch.dist.sharding import current_mesh
 from repro_torch.obs.metrics import registry as _obs
 from repro_torch.resilience import chaos as _chaos
 from repro_torch.resilience.retry import Policy
@@ -72,6 +83,8 @@ def _to_host(x) -> np.ndarray:
     byte view): a tensor's values on the host, bf16/fp8 as uint8 bytes."""
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
+    if isinstance(x, DTensor):
+        x = x.full_tensor()  # collective: every rank of its mesh calls it
     t = x.detach().to("cpu", copy=True).contiguous()  # a snapshot
     if _dtype_name(t) in _EXOTIC:
         return t.view(torch.uint8).numpy().reshape(
@@ -88,9 +101,26 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
+def _multi_rank() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of several, or the
+    only one."""
+    return not _multi_rank() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: Optional[dict] = None) -> str:
-    return _write(ckpt_dir, step, _snapshot(tree), extra)
+    """Write ``tree`` as step ``step``; the step's directory.  Collective
+    on several ranks (rank 0 writes, all wait on a barrier)."""
+    snapshot = _snapshot(tree)
+    final = _write(ckpt_dir, step, snapshot, extra) if _writes() else \
+        _step_dir(ckpt_dir, step)
+    if _multi_rank():
+        dist.barrier()
+    return final
 
 
 def _snapshot(tree) -> tuple:
@@ -216,16 +246,21 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return None
 
 
-def restore(ckpt_dir: str, target: Any, step: Optional[int] = None
-            ) -> tuple:
+def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple:
     """Restore into the structure of ``target`` → (tree, step, extra).
     Each leaf keeps its stored dtype and goes to the device of ``target``'s
-    leaf in its place.
+    leaf in its place (a DTensor target leaf: its mesh and placements).
+
+    ``shardings`` re-places the leaves onto a mesh: a tree matching
+    ``target`` of ``(DeviceMesh, placements)`` pairs, or of logical-axis
+    tuples resolved against the mesh of ``use_mesh_rules``, or a single
+    one for every leaf — the elastic restore onto a mesh of another size.
 
     With ``step=None`` the newest *valid* checkpoint is loaded — partial or
     checksum-failing steps are skipped.  An explicit ``step`` is validated
     and raises :class:`CheckpointError` if it doesn't check out."""
-    return IO_POLICY.call(_restore_once, ckpt_dir, target, step,
+    return IO_POLICY.call(_restore_once, ckpt_dir, target, step, shardings,
                           site="ckpt.restore")
 
 
@@ -236,7 +271,21 @@ def _from_stored(a: np.ndarray, dtype: str, shape) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).reshape(tuple(shape))
 
 
-def _restore_once(ckpt_dir: str, target: Any, step: Optional[int]) -> tuple:
+def _reshard(t: torch.Tensor, tgt, spec):
+    """A restored leaf placed as ``spec`` says, else as ``tgt`` is."""
+    if spec is None and isinstance(tgt, DTensor):
+        spec = (tgt.device_mesh, tgt.placements)
+    if spec is None:
+        return t.to(tgt.device if isinstance(tgt, torch.Tensor) else "cpu")
+    mesh = spec[0] if is_pair(spec) else current_mesh()
+    if mesh is None:
+        raise ValueError(f"shardings {spec}: logical axes need a mesh "
+                         "installed by use_mesh_rules")
+    return place(t, mesh, spec)
+
+
+def _restore_once(ckpt_dir: str, target: Any, step: Optional[int],
+                  shardings: Any) -> tuple:
     _chaos.maybe_raise("ckpt.restore")
     if step is None:
         step = latest_step(ckpt_dir)
@@ -256,13 +305,13 @@ def _restore_once(ckpt_dir: str, target: Any, step: Optional[int]) -> tuple:
     if len(targets) != n:
         raise ValueError(f"checkpoint has {n} leaves, target expects "
                          f"{len(targets)}")
+    specs = [None] * n if shardings is None else spec_leaves(shardings, n)
     leaves = []
     with np.load(os.path.join(d, "arrays.npz")) as data:
-        for i, tgt in enumerate(targets):
+        for i, (tgt, spec) in enumerate(zip(targets, specs)):
             t = _from_stored(data[f"leaf_{i}"], manifest["dtypes"][i],
                              manifest["shapes"][i])
-            dev = tgt.device if isinstance(tgt, torch.Tensor) else "cpu"
-            leaves.append(t.to(dev))
+            leaves.append(_reshard(t, tgt, spec))
     return tree_unflatten(target, leaves), step, manifest["extra"]
 
 
@@ -281,9 +330,13 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
 
     def wait(self):
+        """Join the writer; on several ranks every rank then waits on a
+        barrier, so no rank reads a step rank 0 has not finished."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _multi_rank():
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -300,9 +353,12 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         self.wait()
-        # the copy to the host happens here (a consistent snapshot); the
-        # disk write overlaps the next training steps
+        # the copy to the host happens here (a consistent snapshot, the
+        # DTensors gathered on every rank); rank 0's disk write overlaps
+        # the next training steps
         snapshot = _snapshot(tree)
+        if not _writes():
+            return
         if self.async_write:
             self._thread = threading.Thread(
                 target=self._do_save, args=(step, snapshot, extra),
@@ -319,7 +375,7 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore(self, target):
+    def restore(self, target, shardings=None):
         self.wait()
-        return restore(self.dir, target)
+        return restore(self.dir, target, shardings=shardings)
 

@@ -7,8 +7,20 @@ accumulation, checkpoint/restart, straggler watchdog (the reference's
 the place of ``jax.value_and_grad``, and a parameter the loss does not
 reach gets a zero gradient, as JAX gives it.  Gradient accumulation loops
 over the leading microbatch axis, sums fp32 gradients and divides, as the
-reference's ``lax.scan`` does.  There is no ``jit`` and no mesh: the port
-runs on one device (distribution is ROADMAP A12).
+reference's ``lax.scan`` does.  There is no ``jit``.
+
+On a ``DeviceMesh`` whose ``model`` axis is 1 the step is data-parallel:
+each rank computes the gradient of its block of the global batch, the
+ranks' gradients are averaged over ``("pod", "data")`` with ``all_reduce``
+(uncompressed, as the reference's Trainer reduces them under GSPMD), and
+every rank takes the same optimizer step, so the parameters stay equal.
+A mean of the ranks' means is the global batch's mean only where every
+rank's loss divides by the same count, so on a mesh the step needs the
+loss's ``denominator`` (batch → the count its mean divides by): the ranks
+all-reduce it and weigh their gradients, losses and metrics by
+``w_r · S / Σ w`` before the mean, which is exactly 1 (no multiply) when
+the counts agree.  A ``model`` axis > 1 (tensor and expert parallelism) is
+ROADMAP A12b.
 
 The step time is taken after ``torch.cuda.synchronize()`` when the loss
 lives on the card (the counterpart of ``block_until_ready``).  Metrics go
@@ -25,6 +37,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.dist.collectives import mean_over
+from repro_torch.dist.sharding import mesh_axis_sizes, use_mesh_rules
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import registry as _obs
 
@@ -52,11 +66,55 @@ def _value_and_grad(loss_fn: Callable, params, batch):
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
+def data_parallel_axes(mesh) -> tuple:
+    """The mesh axes a data-parallel step reduces over (those of ``("pod",
+    "data")`` the mesh has); refuses a mesh that shards anything else."""
+    sizes = mesh_axis_sizes(mesh)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a mesh with a 'model' axis of {sizes['model']}: tensor and "
+            "expert parallelism (the models' shard() calls on DTensors) are "
+            "ROADMAP A12b; the port trains data-parallel, on a mesh whose "
+            "'model' axis is 1")
+    other = sorted(a for a, n in sizes.items()
+                   if a not in ("pod", "data", "model") and n > 1)
+    if other:
+        raise NotImplementedError(f"mesh axes {other}: the data-parallel "
+                                  "step reduces over 'pod' and 'data' only")
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if not axes or not hasattr(mesh, "get_group"):
+        raise TypeError(f"want a DeviceMesh with a 'data' or 'pod' axis, "
+                        f"got {type(mesh).__name__} {sizes}")
+    return axes
+
+
+def _rank_weights(denominator: Callable, mbs: list, device, mesh,
+                  axes: tuple) -> list:
+    """Each microbatch's ``w_r · S / Σ_r w_r`` (its share of the global
+    microbatch's denominator, times the ranks' count ``S``): the weight
+    that turns the mean over ranks into the global batch's mean.  Exactly
+    1.0 when every rank divides by the same count; 0 for an empty global
+    microbatch (every rank's loss is then 0)."""
+    w = torch.stack([torch.as_tensor(denominator(mb), dtype=torch.float64,
+                                     device=device) for mb in mbs])
+    total = w.clone()
+    n = 1
+    for a in axes:
+        group = mesh.get_group(a)
+        n *= torch.distributed.get_world_size(group)
+        torch.distributed.all_reduce(total, group=group)
+    share = torch.where(total > 0, w * n / total.clamp_min(1e-300),
+                        torch.zeros_like(w))
+    return share.tolist()
+
+
 def make_train_step(
     loss_fn: Callable,  # (params, batch) -> (loss, metrics)
     optimizer: Transform,
     grad_accum: int = 1,
     compress_grads: bool = False,
+    mesh: Any = None,
+    denominator: Optional[Callable] = None,
 ):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).
@@ -64,27 +122,62 @@ def make_train_step(
     ``grad_accum > 1`` expects batch leaves shaped (grad_accum, ...) and
     accumulates fp32 gradients across the microbatches inside one step.
     ``compress_grads`` rounds the gradient through bf16 (what the
-    reference casts the cross-replica gradient to)."""
+    reference casts the cross-replica gradient to).  With ``mesh`` (a
+    ``DeviceMesh``, ``model`` axis 1) ``batch`` is this rank's block and
+    ``denominator(microbatch)`` the count ``loss_fn``'s mean divides by;
+    gradients, loss and metrics are the global batch's on every rank."""
+    axes = ()
+    if mesh is not None:
+        axes = data_parallel_axes(mesh)
+        if denominator is None:
+            raise ValueError(
+                "a data-parallel step needs denominator=: the count "
+                "loss_fn's mean divides by on a batch (its target tokens, "
+                "its mask's sum), which the ranks all-reduce to weigh their "
+                "means into the global batch's; a loss without one cannot "
+                "train on a mesh")
 
     def step(params, opt_state, batch):
+        mbs = [batch] if grad_accum == 1 else \
+            [tree_map(lambda x: x[i], batch) for i in range(grad_accum)]
+        if mesh is None:
+            weights = [1.0] * grad_accum
+        else:
+            weights = _rank_weights(denominator, mbs, tree_leaves(params)[0]
+                                    .device, mesh, axes)
+
+        def weigh(x, i):
+            return x if weights[i] == 1.0 else x * weights[i]
+
         if grad_accum == 1:
             loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+            loss = weigh(loss, 0)
+            metrics = {k: weigh(v, 0) for k, v in metrics.items()}
+            grads = tree_map(lambda g: weigh(g, 0), grads)
         else:
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                  device=p.device), params)
             losses, metricses = [], []
-            for i in range(grad_accum):
-                mb = tree_map(lambda x: x[i], batch)
+            for i, mb in enumerate(mbs):
                 loss, metrics, grads = _value_and_grad(loss_fn, params, mb)
-                acc = tree_map(lambda a, g: a + g.to(torch.float32), acc,
-                               grads)
-                losses.append(loss)
-                metricses.append(metrics)
+                acc = tree_map(lambda a, g: a + weigh(g.to(torch.float32), i),
+                               acc, grads)
+                losses.append(weigh(loss, i))
+                metricses.append({k: weigh(v, i) for k, v in metrics.items()})
             grads = tree_map(lambda g: g / grad_accum, acc)
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([torch.as_tensor(m[k])
                                        for m in metricses]).mean()
                        for k in metricses[0]}
+        if mesh is not None:
+            # one all_reduce for the scalars, one a gradient leaf
+            names = sorted(metrics)
+            scalars = torch.stack([loss] + [
+                torch.as_tensor(metrics[k], dtype=loss.dtype,
+                                device=loss.device) for k in names])
+            mean_over([scalars] + tree_leaves(grads), mesh, axes)
+            loss = scalars[0]
+            metrics = {k: scalars[j + 1] for j, k in enumerate(names)}
         if compress_grads:
             grads = tree_map(
                 lambda g: g.to(torch.bfloat16).to(torch.float32), grads)
@@ -150,9 +243,13 @@ def _batch_tokens(batch) -> int:
 class Trainer:
     """Checkpoint-resumable training loop (restart-safe by construction:
     state = (params, opt_state, step) is fully captured per checkpoint).
-    ``mesh`` must be None (distribution is ROADMAP A12); ``donate`` is
-    accepted and changes nothing (a step's old state is dropped as soon as
-    the new one is assigned)."""
+
+    ``mesh``: None (one device) or a ``DeviceMesh`` whose ``model`` axis is
+    1, on which the step is data-parallel (see :func:`make_train_step`) and
+    ``denominator`` is required; the loop runs under ``use_mesh_rules``,
+    every rank calls :meth:`run` with its own batches, and rank 0 writes
+    the checkpoints.  ``donate`` is accepted and changes nothing (a step's
+    old state is dropped as soon as the new one is assigned)."""
 
     loss_fn: Callable
     optimizer: Transform
@@ -162,20 +259,27 @@ class Trainer:
     grad_accum: int = 1
     mesh: Any = None
     donate: bool = True
+    denominator: Optional[Callable] = None  # batch -> loss_fn's divisor
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the port trains on one device; "
-                "distribution comes with ROADMAP A12")
         self._step_fn = make_train_step(self.loss_fn, self.optimizer,
-                                        self.grad_accum)
+                                        self.grad_accum, mesh=self.mesh,
+                                        denominator=self.denominator)
         self._manager = (
             ckpt_lib.CheckpointManager(self.ckpt_dir, keep=self.keep)
             if self.ckpt_dir else None)
         self.watchdog = StragglerWatchdog()
 
     def init_state(self, params):
+        """(params, optimizer state); on a mesh the parameters are first
+        broadcast from the mesh's first rank, so every rank starts from the
+        same values."""
+        if self.mesh is not None:
+            for a in data_parallel_axes(self.mesh):
+                group = self.mesh.get_group(a)
+                src = torch.distributed.get_global_rank(group, 0)
+                for x in tree_leaves(params):
+                    torch.distributed.broadcast(x, src, group=group)
         return params, self.optimizer.init(params)
 
     def maybe_restore(self, params, opt_state):
@@ -201,30 +305,31 @@ class Trainer:
         step_hist = _obs.histogram("train.step_seconds",
                                    "per-step walltime (after synchronize)")
         step_ctr = _obs.counter("train.steps", "optimizer steps taken")
-        for step in range(start_step, num_steps):
-            batch = next(batches)
-            t0 = time.perf_counter()
-            params, opt_state, metrics = self._step_fn(params, opt_state,
-                                                       batch)
-            if metrics["loss"].is_cuda:  # block_until_ready's counterpart
-                torch.cuda.synchronize(metrics["loss"].device)
-            dt = time.perf_counter() - t0
-            step_hist.observe(dt)
-            step_ctr.inc()
-            tokens = _batch_tokens(batch)
-            if tokens:
-                _obs.gauge("train.tokens_per_s",
-                           "training throughput").set(tokens / max(dt, 1e-9))
-            straggler = self.watchdog.observe(step, dt)
-            if step % log_every == 0 or step == num_steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}
-                history.append({"step": step, "dt": dt, **m})
-                log_fn(f"step {step:5d} loss={m['loss']:.4f} "
-                       f"gnorm={m['grad_norm']:.3f} dt={dt*1e3:.1f}ms"
-                       + (" [STRAGGLER]" if straggler else ""))
-            if (self._manager is not None and step > start_step
-                    and step % self.ckpt_every == 0):
-                self._save(step, (params, opt_state))
+        with use_mesh_rules(self.mesh):
+            for step in range(start_step, num_steps):
+                batch = next(batches)
+                t0 = time.perf_counter()
+                params, opt_state, metrics = self._step_fn(params, opt_state,
+                                                           batch)
+                if metrics["loss"].is_cuda:  # block_until_ready's counterpart
+                    torch.cuda.synchronize(metrics["loss"].device)
+                dt = time.perf_counter() - t0
+                step_hist.observe(dt)
+                step_ctr.inc()
+                tokens = _batch_tokens(batch)
+                if tokens:
+                    _obs.gauge("train.tokens_per_s", "training throughput"
+                               ).set(tokens / max(dt, 1e-9))
+                straggler = self.watchdog.observe(step, dt)
+                if step % log_every == 0 or step == num_steps - 1:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    history.append({"step": step, "dt": dt, **m})
+                    log_fn(f"step {step:5d} loss={m['loss']:.4f} "
+                           f"gnorm={m['grad_norm']:.3f} dt={dt*1e3:.1f}ms"
+                           + (" [STRAGGLER]" if straggler else ""))
+                if (self._manager is not None and step > start_step
+                        and step % self.ckpt_every == 0):
+                    self._save(step, (params, opt_state))
         if self._manager is not None:
             self._save(num_steps, (params, opt_state))
             self._manager.wait()

@@ -9,7 +9,7 @@ what the checkpoint manifests of both packages record.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 __all__ = ["tree_map", "tree_leaves", "tree_unflatten", "tree_paths",
            "keystr"]
@@ -28,21 +28,24 @@ def _children(node) -> List[Tuple[Any, Any]]:
     return None
 
 
-def _flatten(node, path, leaves, paths):
+def _flatten(node, path, leaves, paths, is_leaf=None):
     if node is None:
         return
-    kids = _children(node)
+    kids = None if is_leaf is not None and is_leaf(node) else \
+        _children(node)
     if kids is None:
         leaves.append(node)
         paths.append(path)
         return
     for key, child in kids:
-        _flatten(child, path + (key,), leaves, paths)
+        _flatten(child, path + (key,), leaves, paths, is_leaf)
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> list:
+    """The leaves in JAX's order; a node for which ``is_leaf`` is true is a
+    leaf, as with ``jax.tree.leaves(..., is_leaf=)``."""
     leaves, paths = [], []
-    _flatten(tree, (), leaves, paths)
+    _flatten(tree, (), leaves, paths, is_leaf)
     return leaves
 
 

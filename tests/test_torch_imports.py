@@ -45,6 +45,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.configs.gnn_archs, repro_torch.configs.gat_cora\n"
         "import repro_torch.configs.gin_tu, repro_torch.configs.dimenet\n"
         "import repro_torch.configs.graphsage_reddit\n"
+        "import repro_torch.dist, repro_torch.dist.sharding\n"
+        "import repro_torch.dist.collectives, repro_torch.dist.elastic\n"
+        "import repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
@@ -53,6 +56,23 @@ def test_import_pulls_in_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_dist_imports_create_no_process_group():
+    """Importing the distribution layer and the production mesh starts no
+    process group (a mesh is built by a function call)."""
+    code = (
+        "import torch.distributed as dist\n"
+        "import repro_torch.dist, repro_torch.dist.sharding\n"
+        "import repro_torch.dist.collectives, repro_torch.dist.elastic\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.train\n"
+        "import repro_torch.train.trainer, repro_torch.train.checkpoint\n"
+        "print('GROUP:', dist.is_initialized())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "GROUP: False", out.stdout
 
 
 def _offenders(files, root):

@@ -93,7 +93,13 @@ def test_batch_tokens_counts_the_largest_integer_leaf():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="A12"):
+    """A mesh that shards the model (``model`` > 1) is refused, naming
+    ROADMAP A12b; a data-parallel mesh trains
+    (tests/test_torch_dist_train.py)."""
+    with pytest.raises(NotImplementedError, match="A12b"):
+        Trainer(loss_fn=_linreg, optimizer=sgd(constant_schedule(0.1)),
+                mesh={"data": 2, "model": 2}, denominator=lambda b: 1.0)
+    with pytest.raises(TypeError, match="mesh"):
         Trainer(loss_fn=_linreg, optimizer=sgd(constant_schedule(0.1)),
                 mesh=object())
 
