@@ -253,9 +253,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``reshard``-ed onto the mesh and back, a checkpoint saved from the mesh
    and restored with ``shardings=``: bit-equal.  The ``kernels`` record's
    rows 4 and 7 gain (a)'s launches (``launches_dist_train``).
+15. Models on a mesh, after phase 14 (the models on DTensors,
+   ``Trainer(mesh=)`` with a ``model`` axis, data-parallel MoE): two ranks
+   on the one card, two threads of this process in torch's threaded
+   process group (``mp_group``: NCCL refuses two ranks on one device, and
+   gloo's functional collectives crashed its processes on CUDA tensors),
+   each sub-phase against the same work on one device, run first.  (a) ``mp_train``:
+   TinyLlama-1.1B at its published config, 8 × 512, AdamW, 3 steps on
+   ("data", "model") = (1, 2), parameters placed by
+   ``param_logical_axes``: step 0's loss at 2e-3 and gradient norm at 2e-2
+   relative, steps 1-2's losses at 1e-2; ``flash_attention_wgmma`` and
+   ``flash_attention_bwd_wgmma`` 22 times a step a rank on 16 q and 2 KV
+   heads.  (b) ``mp_moe``: Granite-MoE-3B-A800M, 32 layers, fp32, experts
+   over ``model`` (20 a rank): ``serve_prefill`` on 8 × 128, then 16
+   prompt tokens decoded into a cache split by ``kv_heads`` and 16 greedy
+   steps; logits at rtol 1e-3, atol 1e-4, greedy tokens equal, expert ids
+   and kept sets equal but at (token, slot) pairs whose router top-k gap
+   is < 1e-5 (counted); ``flash_attention`` once a layer and
+   ``flash_decode`` once a layer a step, on 12 q and 4 KV heads a rank.
+   (c) ``mp_moe_dp``: Granite at published width cut to 4 layers, bf16,
+   3 AdamW steps on (2, 1) (each rank its block of 8 × 512, the aux
+   loss's means all-reduced) against one device under
+   ``use_mesh_rules({"data": 2, "model": 1})``: losses (aux included)
+   at (a)'s tolerances, and the aux of step 0's batch in an fp32 forward
+   at 1e-5 (bf16 rounds the router's inputs by GEMM shape).  (d)
+   ``mp_bert4rec``:
+   ``bert4rec_score`` of 512 users at 10⁶ items on (1, 2), the scores
+   split by ``vocab``: ids tie-aware as in phase 8, recall of one device's
+   top 10.  (e) ``mp_gnn``: GraphSAGE-Reddit, 512 seeds, ``binned_edges``
+   on a stripe-laid batch, one gradient on (2, 1): loss and every gradient
+   within ``SUM_RTOL`` of the largest.  Each line: seconds and launches
+   per rank, the peak memory of both ranks, ``gathered_ops``; rows 4, 5
+   and 7 of the ``kernels`` record gain ``launches_model_parallel``.
    Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
-   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b), 13 and 14 must end with no
-   ``resilience.*`` counter moved (``resilience_quiet`` lines).
+   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b), 13, 14 and 15 must end with
+   no ``resilience.*`` counter moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -272,6 +304,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -2925,7 +2958,7 @@ def phase_score_retry(b4: dict):
 #: Granite-MoE-3B-A800M at its published config (32 layers)
 MOE_ARCH = "granite-moe-3b-a800m"
 #: Mixtral-8x22B at its published width; 56 layers would be ~281 GB in
-#: bf16, more than one card holds (sharding a model is ROADMAP A12b)
+#: bf16, more than one card holds
 MIXTRAL_ARCH = "mixtral-8x22b"
 MIXTRAL_LAYERS = 2
 
@@ -4571,6 +4604,798 @@ def phase_distribution(seed: int, log, records: list) -> dict:
     return {"train": train, "seconds": secs}
 
 
+# --------------------------------------------------------------------- #
+# phase 15: models on a two-rank mesh on the one card
+# --------------------------------------------------------------------- #
+#: two ranks on cuda:0: two threads of this process in torch's threaded
+#: process group, which carries every collective as torch ops on the
+#: ranks' tensors (NCCL refuses two ranks on one device; gloo's functional
+#: collectives on CUDA tensors crash its processes in torch 2.11)
+MP_WORLD, MP_BACKEND, MP_GROUP_TIMEOUT_S = 2, "threaded", 900
+#: (a) TinyLlama-1.1B, 8 × 512, AdamW, 3 steps on ("data", "model") =
+#: (1, 2): step 0's loss and gradient norm at phase 13's tolerances, steps
+#: 1-2's losses at 1e-2
+MP_STEPS, MP_B, MP_S = 3, 8, 512
+MP_LOSS_RTOL0, MP_GNORM_RTOL0, MP_LOSS_RTOL = 2e-3, 2e-2, 1e-2
+#: (b) Granite-MoE-3B-A800M, 32 layers, fp32 on (1, 2): serve_prefill on
+#: 8 × 128, then 32 decode steps (16 prompt tokens into the cache, 16
+#: greedy); logits at phase 12's tolerances; expert ids and kept sets
+#: equal except at (token, slot) pairs whose router top-k gap is < 1e-5
+MP_MOE_B, MP_MOE_P, MP_MOE_FORCED, MP_MOE_NEW = 8, 128, 16, 16
+MP_MOE_RTOL, MP_MOE_ATOL, MP_TIE_GAP = 1e-3, 1e-4, 1e-5
+#: (c) Granite at published width cut to 4 layers, bf16, 3 AdamW steps on
+#: (2, 1), 8 × 512: losses (the aux term in them) at (a)'s tolerances; the
+#: aux loss of step 0's batch at 1e-5 in an fp32 forward (in bf16 the
+#: ranks' 2048-row GEMMs round the router's inputs otherwise than one
+#: device's 4096-row ones, and each token whose top-1 expert flips moves
+#: the aux by ~3e-5 of itself)
+MP_DP_LAYERS, MP_AUX_RTOL = 4, 1e-5
+#: (d) BERT4Rec at 10⁶ items: 512 users, top 10, on (1, 2)
+MP_B4_USERS, MP_B4_K = 512, 10
+#: (e) GraphSAGE-Reddit, 512 seeds (25-10), binned_edges, on (2, 1)
+MP_SAGE_SEEDS = 512
+#: ops that run whole on every rank in each sub-phase (no DTensor rule
+#: keeps them split, or the rules replicate them)
+MP_GATHERED = {
+    "mp_train": [],
+    "mp_moe": ["embedding and unembedding table whole on both ranks "
+               "(vocab 49,155 does not divide by 2)"],
+    "mp_moe_dp": [],
+    "mp_bert4rec": ["item-embedding gather and encoder replicated over "
+                    "model (data = 1)"],
+    "mp_gnn": ["node states gathered whole before each gather by "
+               "edge_src / edge_dst (take_rows)",
+               "in-degree segment sum: each rank's edges into every node, "
+               "summed over data"],
+}
+
+
+def mp_mesh(shape):
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cuda", torch.arange(MP_WORLD).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+
+
+#: what the spies record for the calling thread: ``heads`` a set of
+#: (kernel, q heads, KV heads), ``routes`` a list of MoE routings (None:
+#: not recorded)
+MP_SEEN = threading.local()
+
+
+@contextlib.contextmanager
+def mp_spies():
+    """For the whole phase: the attention wrappers replaced by ones that
+    note (kernel, q heads, KV heads) and call through, and the MoE's
+    ``route`` / ``_bin_and_dispatch`` by ones that note the top (k + 1)
+    router probabilities, the expert ids and the kept set in (token, slot)
+    order, each into the calling thread's ``MP_SEEN`` (the ranks are
+    threads)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import decode_kernel, ops
+    from repro_torch.models import moe
+
+    names = [(ops, n) for n in ("flash_attention_cuda",
+                                "flash_attention_wgmma_cuda",
+                                "flash_attention_bwd_cuda",
+                                "flash_attention_bwd_wgmma_cuda")]
+    names += [(decode_kernel, "flash_decode_cuda"), (moe, "route"),
+              (moe, "_bin_and_dispatch")]
+    real = {n: getattr(m, n) for m, n in names}
+
+    def note(name):
+        def call(q, k, *a, **kw):
+            heads = getattr(MP_SEEN, "heads", None)
+            if heads is not None:
+                heads.add((name, int(q.shape[1]), int(k.shape[1])))
+            return real[name](q, k, *a, **kw)
+        return call
+
+    def route(params, xt, cfg):
+        probs, gate_vals, ids = real["route"](params, xt, cfg)
+        if getattr(MP_SEEN, "routes", None) is not None:
+            top = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).values[:, :cfg.top_k + 1]
+            MP_SEEN.routes.append({"top": top.float().cpu(),
+                                   "ids": ids.cpu()})
+        return probs, gate_vals, ids
+
+    def bin_(xt, gate_vals, ids, E, C):
+        out = real["_bin_and_dispatch"](xt, gate_vals, ids, E, C)
+        if getattr(MP_SEEN, "routes", None) is not None:
+            keep_sorted, order = out[4], out[5]
+            pair = torch.empty_like(keep_sorted).index_copy_(0, order,
+                                                             keep_sorted)
+            MP_SEEN.routes[-1]["keep"] = pair.view(ids.shape).cpu()
+        return out
+
+    for m, n in names[:5]:
+        setattr(m, n, note(n))
+    moe.route, moe._bin_and_dispatch = route, bin_
+    try:
+        yield
+    finally:
+        for m, n in names:
+            setattr(m, n, real[n])
+
+
+def mp_watch(routes: bool = False):
+    """Start this thread's records (attention heads; MoE routings when
+    ``routes``) and zero its launch counts."""
+    from repro_torch.kernels import cuda_build
+
+    MP_SEEN.heads = set()
+    MP_SEEN.routes = [] if routes else None
+    cuda_build.reset_launches()
+
+
+def mp_peak(mesh, reset: bool):
+    """Peak ``max_memory_allocated`` in GB for a one-device run (reset it
+    when ``reset``); on a mesh the ranks share the process, so the phase
+    reads the peak of both around each sub-phase instead (None here)."""
+    import torch
+
+    if mesh is not None:
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+        return None
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def mp_lm_train(seed: int, mesh, cfg, steps: int, dispatch_mesh=None,
+                param_axes=None) -> dict:
+    """``steps`` AdamW steps of ``cfg`` on 8 × 512 tokens from ``seed``
+    through ``Trainer(mesh=mesh)`` (None: one device, its MoE dispatch
+    under ``use_mesh_rules(dispatch_mesh)``): losses, aux, gradient norms,
+    ms a step, the launches."""
+    import torch
+
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.dist.sharding import use_mesh_rules
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init_params(cfg, gen, dev)
+    batches = synthetic_lm_batches(MP_B, MP_S, cfg.vocab, seed=seed,
+                                   device=dev, mesh=mesh)
+
+    def loss_fn(p, b):
+        with use_mesh_rules(dispatch_mesh if mesh is None else mesh):
+            return tfm.loss_fn(p, b, cfg)
+
+    tr = Trainer(loss_fn=loss_fn,
+                 optimizer=adamw(cosine_schedule(3e-4, 20, steps)),
+                 mesh=mesh, param_axes=param_axes,
+                 denominator=(lambda b: tfm.loss_denominator(b, cfg))
+                 if mesh is not None else None)
+    p, st = tr.init_state(params)
+    del params
+    torch.cuda.synchronize()
+    mp_peak(mesh, reset=True)
+    mp_watch()
+    p, st, hist = tr.run(p, st, batches, num_steps=steps, log_every=1,
+                         log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    return {"losses": [h["loss"] for h in hist],
+            "aux": [h["moe_aux"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": [1e3 * h["dt"] for h in hist],
+            "launches": dict(cuda_build.thread_launches()),
+            "heads": sorted(MP_SEEN.heads),
+            "peak_memory_gb": mp_peak(mesh, reset=False)}
+
+
+def mp_aux_fp32(seed: int, mesh, cfg, dispatch_mesh=None) -> float:
+    """The aux loss of ``cfg`` (fp32 compute) on the first 8 × 512 batch
+    from ``seed``, at the parameters ``seed`` draws: on ``mesh`` each
+    rank's block, the aux's means all-reduced; else one device under
+    ``use_mesh_rules(dispatch_mesh)``."""
+    import torch
+
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.dist.sharding import use_mesh_rules
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    batch = next(synthetic_lm_batches(MP_B, MP_S, cfg.vocab, seed=seed,
+                                      device=dev, mesh=mesh))
+    with torch.no_grad(), use_mesh_rules(dispatch_mesh if mesh is None
+                                         else mesh):
+        _, metrics = tfm.loss_fn(params, batch, cfg)
+    return float(metrics["moe_aux"])
+
+
+def mp_moe_serve(seed: int, mesh, records: bool) -> dict:
+    """Granite-MoE-3B-A800M at 32 layers, fp32: ``serve_prefill`` on
+    8 × 128 prompts, then 16 prompt tokens decoded into a cache and 16
+    greedy steps; on ``mesh`` the parameters placed by
+    ``param_logical_axes`` and the cache split by ``kv_heads``."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import place_tree, use_mesh_rules
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).make_model_cfg(),
+                              compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init_params(cfg, gen, dev)
+    if mesh is not None:
+        params = place_tree(params, tfm.param_logical_axes(cfg), mesh,
+                            src_data_rank=None)
+        torch.cuda.empty_cache()
+    prompts = moe_prompts(MP_MOE_B, MP_MOE_P, cfg.vocab, seed + 2).to(dev)
+
+    def feed(t):
+        if mesh is None:
+            return t
+        return distribute_tensor(t, mesh, [Replicate()] * mesh.ndim,
+                                 src_data_rank=None)
+
+    def host(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
+
+    torch.cuda.synchronize()
+    mp_peak(mesh, reset=True)
+    mp_watch(routes=records)
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_mesh_rules(mesh):
+        pre = host(tfm.serve_prefill(params, feed(prompts), cfg))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        l_prefill = dict(cuda_build.thread_launches())
+        cache = tfm.init_cache(cfg, MP_MOE_B, MP_MOE_FORCED + MP_MOE_NEW,
+                               dtype=torch.float32, device=dev, mesh=mesh)
+        logits, toks = [], []
+        t1 = time.perf_counter()
+        for t in range(MP_MOE_FORCED):
+            lg, cache = tfm.serve_decode(params, feed(prompts[:, t:t + 1]),
+                                         t, cache, cfg)
+            logits.append(host(lg))
+        tok = logits[-1].argmax(-1, keepdim=True).to(dev)
+        for i in range(MP_MOE_NEW):
+            lg, cache = tfm.serve_decode(params, feed(tok),
+                                         MP_MOE_FORCED + i, cache, cfg)
+            logits.append(host(lg))
+            tok = logits[-1].argmax(-1, keepdim=True).to(dev)
+            toks.append(tok.cpu())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+    launches = dict(cuda_build.thread_launches())
+    return {"prefill": pre, "logits": torch.stack(logits),
+            "tokens": torch.cat(toks, 1), "routes": MP_SEEN.routes,
+            "prefill_launches": l_prefill, "launches": launches,
+            "heads": sorted(MP_SEEN.heads), "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_step": 1e3 * decode_s / (MP_MOE_FORCED
+                                                    + MP_MOE_NEW),
+            "peak_memory_gb": mp_peak(mesh, reset=False),
+            "n_layers": cfg.n_layers, "heads_per_rank": (
+                cfg.n_heads // MP_WORLD, cfg.n_kv_heads // MP_WORLD)}
+
+
+def mp_b4_users(cfg):
+    import numpy as np
+
+    from repro_torch.data.recsys import make_cloze_batch
+
+    return make_cloze_batch(np.random.default_rng(SEED + 3), MP_B4_USERS,
+                            cfg.max_len, cfg.vocab, cfg.mask_id,
+                            device="cpu")["items"]
+
+
+def mp_b4_score(seed: int, mesh) -> dict:
+    """BERT4Rec at 10⁶ items: ``bert4rec_score`` of 512 users, top 10; on
+    ``mesh`` replicated parameters and the scores split by ``vocab``."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import place_tree, use_mesh_rules
+    from repro_torch.models import bert4rec as b4
+
+    dev = torch.device("cuda")
+    cfg = get_arch("bert4rec").make_model_cfg()
+    params = b4.init_bert4rec(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    users = mp_b4_users(cfg).to(dev)
+    if mesh is not None:
+        params = place_tree(params, None, mesh, src_data_rank=None)
+        users = distribute_tensor(users, mesh, [Replicate()] * mesh.ndim,
+                                  src_data_rank=None)
+    torch.cuda.synchronize()
+    mp_peak(mesh, reset=True)
+    times = []
+    with torch.no_grad(), use_mesh_rules(mesh):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            v, i = b4.bert4rec_score(params, users, cfg, top_k=MP_B4_K)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    full = [(t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
+            for t in (v, i)]
+    return {"values": full[0], "ids": full[1], "ms": 1e3 * min(times[1:]),
+            "peak_memory_gb": mp_peak(mesh, reset=False)}
+
+
+def mp_sage_batch(seed: int):
+    """A GraphSAGE-Reddit batch of 512 seeds (25-10) on the host, its
+    edges laid out in two destination stripes (``binned_edges``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import reddit_like
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.models.gnn import bin_edges_by_stripe
+
+    cfg = get_arch("graphsage-reddit").make_model_cfg()
+    g, host = reddit_like(seed=seed, device="cpu")
+    sampler = NeighborSampler(g, host.node_feat.numpy(), host.labels.numpy(),
+                              cfg.sample_sizes, seed=seed, device="cpu")
+    return bin_edges_by_stripe(sampler.sample(MP_SAGE_SEEDS), MP_WORLD)
+
+
+def mp_sage_grads(seed: int, mesh, batch) -> dict:
+    """One gradient of GraphSAGE-Reddit (``binned_edges``) on ``batch``:
+    on ``mesh`` the batch placed by ``nodes`` / ``edges`` and the
+    parameters replicated."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import place_tree, use_mesh_rules
+    from repro_torch.models import gnn
+    from repro_torch.train.trainer import _value_and_grad
+    from repro_torch.train.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch("graphsage-reddit").make_model_cfg(),
+                              binned_edges=True)
+    params = gnn.init_gnn(torch.Generator(device=dev).manual_seed(seed), cfg,
+                          dev)
+    batch = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).to(dev)
+        for f in dataclasses.fields(batch) if getattr(batch, f.name)
+        is not None})
+    if mesh is not None:
+        params = place_tree(params, None, mesh, src_data_rank=None)
+        batch = gnn.place_batch(batch, mesh)
+    torch.cuda.synchronize()
+    mp_peak(mesh, reset=True)
+    t0 = time.perf_counter()
+    with use_mesh_rules(mesh):
+        loss, _, grads = _value_and_grad(
+            lambda p, b: gnn.gnn_loss_fn(p, b, cfg), params, batch)
+    full = [(g.full_tensor() if hasattr(g, "full_tensor") else g).cpu()
+            for g in tree_leaves(grads)]
+    torch.cuda.synchronize()
+    loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+    return {"loss": float(loss), "grads": full,
+            "ms": 1e3 * (time.perf_counter() - t0),
+            "peak_memory_gb": mp_peak(mesh, reset=False)}
+
+
+def mp_rank_jobs(rank: int, seed: int, inputs: dict) -> dict:
+    """Phase 15 on one rank: every sub-phase's mesh side, in order."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    out = {}
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    dp_cfg = dataclasses.replace(get_arch(MOE_ARCH).make_model_cfg(),
+                                 n_layers=MP_DP_LAYERS)
+    jobs = [
+        ("mp_train", lambda: mp_lm_train(
+            seed, mp_mesh((1, 2)), cfg, MP_STEPS,
+            param_axes=tfm.param_logical_axes(cfg))),
+        ("mp_moe", lambda: mp_moe_serve(seed, mp_mesh((1, 2)), rank == 0)),
+        ("mp_moe_dp", lambda: {**mp_lm_train(
+            seed, mp_mesh((2, 1)), dp_cfg, MP_STEPS), "aux_fp32": mp_aux_fp32(
+                seed, mp_mesh((2, 1)), dp_cfg)}),
+        ("mp_bert4rec", lambda: mp_b4_score(seed, mp_mesh((1, 2)))),
+        ("mp_gnn", lambda: mp_sage_grads(seed, mp_mesh((2, 1)),
+                                         inputs["sage_batch"])),
+    ]
+    for name, job in jobs:
+        torch.distributed.barrier()
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        out[name] = job()
+        out[name]["seconds"] = time.perf_counter() - t0
+        emit({"phase": "mp_rank_done", "rank": rank, "subphase": name,
+              "seconds": out[name]["seconds"]})
+        torch.distributed.barrier()
+        if rank == 0:  # both ranks' tensors live in this process
+            out[name]["peak_memory_gb_both_ranks"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_threads(seed: int, inputs: dict) -> list:
+    """Both ranks' results, in rank order: two threads joined in torch's
+    threaded process group (a ``HashStore``; each rank's collectives are
+    torch ops on the ranks' CUDA tensors), each running
+    :func:`mp_rank_jobs`.  A rank's failure wakes the other and raises
+    with its traceback; a rank still running after the limit raises too
+    (the threads are daemons, so none outlives the script)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as tpg
+
+    results, errors = {}, {}
+    store = dist.HashStore()
+
+    def rank_main(rank: int):
+        try:
+            torch.cuda.set_device(0)
+            # the group lives in this thread's world, which
+            # _uninstall_threaded_pg drops whole (torch 2.11's
+            # destroy_process_group cannot take a thread's world)
+            dist.init_process_group(MP_BACKEND, rank=rank,
+                                    world_size=MP_WORLD, store=store)
+            emit({"phase": "mp_rank_start", "rank": rank,
+                  "backend": dist.get_backend()})
+            results[rank] = mp_rank_jobs(rank, seed, inputs)
+        except BaseException:
+            errors[rank] = traceback.format_exc()
+            tpg.ProcessLocalGroup.exception_handle(None)  # wake the peer
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    tpg._install_threaded_pg()
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True,
+                                name=f"mp_rank{r}") for r in range(MP_WORLD)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + MP_GROUP_TIMEOUT_S
+        for t in threads:
+            t.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        tpg.ProcessLocalGroup.reset()
+        tpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if errors:
+        raise AssertionError(f"phase 15, rank {min(errors)}:\n"
+                             f"{errors[min(errors)]}")
+    if any(t.is_alive() for t in threads) or len(results) != MP_WORLD:
+        raise AssertionError(f"phase 15: a rank did not finish in "
+                             f"{MP_GROUP_TIMEOUT_S} s")
+    return [results[r] for r in range(MP_WORLD)]
+
+
+def mp_line(name: str, ranks: list, **extra) -> dict:
+    """A sub-phase's line: ms, peak memory and attention launches per
+    rank, the ops that stay whole, and ``extra``."""
+    per = [r[name] for r in ranks]
+    rec = {"phase": name, "backend": MP_BACKEND, "ranks": MP_WORLD,
+           "device": "cuda:0", "seconds_per_rank": [p["seconds"] for p in per],
+           "peak_memory_gb_both_ranks": per[0]["peak_memory_gb_both_ranks"],
+           "launches_per_rank": [p.get("launches", {}) for p in per],
+           "gathered_ops": MP_GATHERED[name]}
+    rec.update(extra)
+    return rec
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mp_check_train(ranks, one) -> dict:
+    """(a): the mesh's losses and gradient norm against one device; 22
+    tensor-core launches of each attention kernel a step on 16 q heads
+    and 2 KV heads."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    n = cfg.n_layers
+    hq, hkv = cfg.n_heads // MP_WORLD, cfg.n_kv_heads // MP_WORLD
+    mesh = ranks[0]["mp_train"]
+    rec = mp_line("mp_train", ranks, arch=LM_ARCH, mesh=[1, 2],
+                  batch=MP_B, seq=MP_S, steps=MP_STEPS,
+                  params=cfg.param_count(),
+                  losses_mesh=mesh["losses"], losses_one_device=one["losses"],
+                  grad_norms_mesh=mesh["grad_norms"],
+                  grad_norms_one_device=one["grad_norms"],
+                  step_ms_mesh=mesh["step_ms"], step_ms_one_device=one[
+                      "step_ms"], heads=[list(h) for h in mesh["heads"]],
+                  loss0_rel=rel(mesh["losses"][0], one["losses"][0]),
+                  grad_norm0_rel=rel(mesh["grad_norms"][0],
+                                     one["grad_norms"][0]),
+                  loss_rel_steps=[rel(a, b) for a, b in zip(
+                      mesh["losses"], one["losses"])])
+    emit(rec)
+    if not (rec["loss0_rel"] <= MP_LOSS_RTOL0
+            and rec["grad_norm0_rel"] <= MP_GNORM_RTOL0
+            and all(r <= MP_LOSS_RTOL for r in rec["loss_rel_steps"])):
+        raise AssertionError(f"mp_train: the mesh misses one device: {rec}")
+    want = n * MP_STEPS
+    for r in ranks:
+        lc = r["mp_train"]["launches"]
+        if any(lc.get(k, 0) != want for k in (
+                "flash_attention", "flash_attention_wgmma",
+                "flash_attention_bwd", "flash_attention_bwd_wgmma")):
+            raise AssertionError(f"mp_train: a rank launched {lc}; want "
+                                 f"{want} of each tensor-core kernel")
+        if r["mp_train"]["heads"] != [
+                ("flash_attention_bwd_wgmma_cuda", hq, hkv),
+                ("flash_attention_wgmma_cuda", hq, hkv)]:
+            raise AssertionError(f"mp_train: heads {r['mp_train']['heads']}"
+                                 f"; want {hq} q and {hkv} KV heads a rank")
+    return rec
+
+
+def mp_route_compare(mesh_routes, one_routes) -> dict:
+    """Expert ids and kept sets of the mesh's rank 0 against one device,
+    call by call; differences allowed only at (token, slot) pairs whose
+    router top-k gap (to the neighbouring probability) is < 1e-5 (a kept
+    set may then move in that call)."""
+    import torch
+
+    if len(mesh_routes) != len(one_routes):
+        raise AssertionError(f"{len(mesh_routes)} MoE routings on the "
+                             f"mesh, {len(one_routes)} on one device")
+    near = ids_off = keep_off = keep_off_calls = 0
+    for m, o in zip(mesh_routes, one_routes):
+        top = o["top"]
+        k = o["ids"].shape[1]
+        gaps = top[:, :-1] - top[:, 1:]  # gap j: between p_j and p_j+1
+        lo = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                        gaps[:, :k - 1]], 1)
+        pair_gap = torch.minimum(lo, gaps[:, :k])
+        tie = pair_gap < MP_TIE_GAP
+        near += int(tie.sum())
+        bad_ids = m["ids"] != o["ids"]
+        if bool((bad_ids & ~tie).any()):
+            raise AssertionError("expert ids differ away from a router tie")
+        ids_off += int(bad_ids.sum())
+        bad_keep = m["keep"] != o["keep"]
+        if bool(bad_keep.any()):
+            if not bool(tie.any()):
+                raise AssertionError("kept sets differ in a routing "
+                                     "without a router tie")
+            keep_off += int(bad_keep.sum())
+            keep_off_calls += 1
+    return {"routings": len(one_routes), "near_tie_pairs": near,
+            "expert_ids_differing": ids_off, "kept_differing": keep_off,
+            "routings_with_kept_differing": keep_off_calls}
+
+
+def mp_check_moe(ranks, one) -> dict:
+    """(b): logits against one device, greedy tokens equal, expert ids and
+    kept sets by :func:`mp_route_compare`; one ``flash_attention`` a layer
+    in the prefill and one ``flash_decode`` a layer a step, on 12 q and 4
+    KV heads a rank."""
+    import torch
+
+    mesh = ranks[0]["mp_moe"]
+    n = one["n_layers"]
+    hq, hkv = one["heads_per_rank"]
+    steps = MP_MOE_FORCED + MP_MOE_NEW
+
+    def share(a, b):
+        return float(((a - b).abs() / (MP_MOE_ATOL + MP_MOE_RTOL * b.abs()))
+                     .max())
+
+    routes = mp_route_compare(mesh["routes"], one["routes"])
+    rec = mp_line("mp_moe", ranks, arch=MOE_ARCH, mesh=[1, 2],
+                  n_layers=n, prompts=[MP_MOE_B, MP_MOE_P],
+                  decode_steps=steps, dtype="float32",
+                  prefill_tolerance_used=share(mesh["prefill"],
+                                               one["prefill"]),
+                  decode_tolerance_used=share(mesh["logits"], one["logits"]),
+                  prefill_max_abs_err=float((mesh["prefill"]
+                                             - one["prefill"]).abs().max()),
+                  tokens_equal=bool(torch.equal(mesh["tokens"],
+                                                one["tokens"])),
+                  prefill_ms_mesh=mesh["prefill_ms"],
+                  prefill_ms_one_device=one["prefill_ms"],
+                  decode_ms_per_step_mesh=mesh["decode_ms_per_step"],
+                  decode_ms_per_step_one_device=one["decode_ms_per_step"],
+                  heads=[list(h) for h in mesh["heads"]], **routes)
+    emit(rec)
+    if not (rec["prefill_tolerance_used"] <= 1.0
+            and rec["decode_tolerance_used"] <= 1.0 and rec["tokens_equal"]):
+        raise AssertionError(f"mp_moe: the mesh misses one device: {rec}")
+    for r in ranks:
+        m = r["mp_moe"]
+        if m["prefill_launches"].get("flash_attention", 0) != n \
+                or m["launches"].get("flash_attention", 0) != n \
+                or m["launches"].get("flash_decode", 0) != n * steps:
+            raise AssertionError(f"mp_moe: a rank launched {m['launches']}"
+                                 f"; want flash_attention = {n}, "
+                                 f"flash_decode = {n * steps}")
+        if m["heads"] != [("flash_attention_cuda", hq, hkv),
+                          ("flash_decode_cuda", hq, hkv)]:
+            raise AssertionError(f"mp_moe: heads {m['heads']}; want {hq} q "
+                                 f"and {hkv} KV heads a rank")
+    return rec
+
+
+def mp_check_moe_dp(ranks, one) -> dict:
+    """(c): losses (with the aux term) at (a)'s tolerances and the aux of
+    step 0's batch in fp32 at 1e-5 against one device under the same
+    two-shard dispatch; 4 + 4 tensor-core attention launches a step a
+    rank."""
+    mesh = ranks[0]["mp_moe_dp"]
+    rec = mp_line("mp_moe_dp", ranks, arch=MOE_ARCH, mesh=[2, 1],
+                  n_layers=MP_DP_LAYERS, batch=MP_B, seq=MP_S,
+                  steps=MP_STEPS, dtype="bfloat16",
+                  reduced={"n_layers": [32, MP_DP_LAYERS]},
+                  losses_mesh=mesh["losses"], losses_one_device=one["losses"],
+                  aux_mesh=mesh["aux"], aux_one_device=one["aux"],
+                  aux0_rel=rel(mesh["aux"][0], one["aux"][0]),
+                  aux_fp32_mesh=mesh["aux_fp32"],
+                  aux_fp32_one_device=one["aux_fp32"],
+                  aux_fp32_rel=rel(mesh["aux_fp32"], one["aux_fp32"]),
+                  loss0_rel=rel(mesh["losses"][0], one["losses"][0]),
+                  loss_rel_steps=[rel(a, b) for a, b in zip(
+                      mesh["losses"], one["losses"])],
+                  step_ms_mesh=mesh["step_ms"],
+                  step_ms_one_device=one["step_ms"])
+    emit(rec)
+    if not (rec["loss0_rel"] <= MP_LOSS_RTOL0
+            and rec["aux0_rel"] <= MP_LOSS_RTOL0
+            and rec["aux_fp32_rel"] <= MP_AUX_RTOL
+            and all(r <= MP_LOSS_RTOL for r in rec["loss_rel_steps"])):
+        raise AssertionError(f"mp_moe_dp: the mesh misses one device: {rec}")
+    for r in ranks:
+        lc = r["mp_moe_dp"]["launches"]
+        if r["mp_moe_dp"]["losses"] != mesh["losses"] or any(
+                lc.get(k, 0) != MP_DP_LAYERS * MP_STEPS
+                for k in ("flash_attention", "flash_attention_bwd")):
+            raise AssertionError(f"mp_moe_dp: rank results {lc}")
+    return rec
+
+
+def mp_check_b4(ranks, seed: int) -> dict:
+    """(d): the mesh's ids tie-aware against fp32 scores (phase 8's rule)
+    and against one device; recall of one device's top 10."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bert4rec as b4
+
+    dev = torch.device("cuda")
+    cfg = get_arch("bert4rec").make_model_cfg()
+    one = mp_b4_score(seed, None)
+    params = b4.init_bert4rec(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    users = mp_b4_users(cfg).to(dev)
+    with torch.no_grad():
+        user32 = b4.bert4rec_encode(params, users, cfg)[:, -1, :]
+        s32 = user32 @ params["item_emb"][: cfg.vocab].T
+    top32 = s32.topk(MP_B4_K, dim=-1)
+    tol = SCORE_TOL_OF_MAX * s32.abs().amax(dim=-1, keepdim=True)
+    ids = ranks[0]["mp_bert4rec"]["ids"].to(dev)
+    margin = s32.gather(1, ids) - (top32.values[:, -1:] - tol)
+    hits = (ids[:, :, None] == one["ids"].to(dev)[:, None, :]).any(-1)
+    rec = mp_line("mp_bert4rec", ranks, items=cfg.vocab,
+                  users=MP_B4_USERS, top_k=MP_B4_K, mesh=[1, 2],
+                  ms_mesh=ranks[0]["mp_bert4rec"]["ms"], ms_one_device=one[
+                      "ms"], recall_of_one_device_top10=float(
+                          hits.float().mean()),
+                  ids_equal_one_device=bool(torch.equal(
+                      ids.cpu(), one["ids"])),
+                  min_margin_over_tol=float(margin.min()),
+                  score_tol_of_max=SCORE_TOL_OF_MAX)
+    emit(rec)
+    del params, s32, user32
+    distinct = all(len(set(r)) == MP_B4_K for r in ids.tolist())
+    if ids.shape != (MP_B4_USERS, MP_B4_K) or not distinct \
+            or not bool((margin >= 0).all()) \
+            or not torch.equal(ranks[1]["mp_bert4rec"]["ids"],
+                               ranks[0]["mp_bert4rec"]["ids"]):
+        raise AssertionError(f"mp_bert4rec: ids fail the tie-aware check: "
+                             f"{rec}")
+    return rec
+
+
+def mp_check_gnn(ranks, one) -> dict:
+    """(e): loss and every gradient of the mesh within ``SUM_RTOL`` of the
+    largest magnitude of one device's."""
+    mesh = ranks[0]["mp_gnn"]
+    errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(mesh["grads"], one["grads"])]
+    rec = mp_line("mp_gnn", ranks, arch="graphsage-reddit", mesh=[2, 1],
+                  seeds=MP_SAGE_SEEDS, binned_edges=True,
+                  loss_mesh=mesh["loss"], loss_one_device=one["loss"],
+                  loss_rel=rel(mesh["loss"], one["loss"]),
+                  grad_rel_of_max=errs, ms_mesh=mesh["ms"],
+                  ms_one_device=one["ms"])
+    emit(rec)
+    if not (rec["loss_rel"] <= SUM_RTOL and max(errs) <= SUM_RTOL
+            and len(errs) == len(one["grads"])):
+        raise AssertionError(f"mp_gnn: the mesh misses one device: {rec}")
+    return rec
+
+
+def phase_model_parallel(seed: int, log, records: list) -> dict:
+    """Phase 15: the models on a ("data", "model") mesh of two ranks on
+    the one card (two threads in torch's threaded process group), each
+    sub-phase against the same work on one device run here first: (a)
+    ``mp_train``, (b) ``mp_moe``, (c) ``mp_moe_dp``, (d) ``mp_bert4rec``,
+    (e) ``mp_gnn``.  Rows 4, 5 and 7 of the ``kernels`` record gain the
+    ranks' launches (``launches_model_parallel``)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+
+    def one_device(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        emit({"phase": "mp_one_device_done", "subphase": name,
+              "seconds": time.perf_counter() - t})
+        return out
+
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    with mp_spies():
+        one_train = one_device("mp_train", lambda: mp_lm_train(
+            seed, None, cfg, MP_STEPS))
+        one_moe = one_device("mp_moe", lambda: mp_moe_serve(seed, None,
+                                                             True))
+        dp_cfg = dataclasses.replace(get_arch(MOE_ARCH).make_model_cfg(),
+                                     n_layers=MP_DP_LAYERS)
+        two_shards = {"data": MP_WORLD, "model": 1}
+        one_dp = one_device("mp_moe_dp", lambda: {**mp_lm_train(
+            seed, None, dp_cfg, MP_STEPS, dispatch_mesh=two_shards),
+            "aux_fp32": mp_aux_fp32(seed, None, dp_cfg, two_shards)})
+        sage = mp_sage_batch(seed)
+        one_gnn = one_device("mp_gnn", lambda: mp_sage_grads(seed, None,
+                                                             sage))
+        one_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ranks = mp_threads(seed, {"sage_batch": sage})
+        mesh_s = time.perf_counter() - t1
+    emit({"phase": "mp_group", "backend": MP_BACKEND, "ranks": MP_WORLD,
+          "device": "cuda:0", "one_device_seconds": one_s,
+          "mesh_seconds": mesh_s,
+          "why": "two ranks on one card: NCCL refuses two ranks on one "
+                 "device, and gloo's functional collectives (the "
+                 "all_gather_tensor a DTensor redistribute issues) crashed "
+                 "both of its processes on CUDA tensors; the threaded "
+                 "group runs each collective as torch ops on the card"})
+    mp_check_train(ranks, one_train)
+    mp_check_moe(ranks, one_moe)
+    mp_check_moe_dp(ranks, one_dp)
+    mp_check_b4(ranks, seed)
+    torch.cuda.empty_cache()
+    mp_check_gnn(ranks, one_gnn)
+    for row in records:
+        if row["name"] not in ("flash_attention", "flash_decode",
+                               "flash_attention_bwd"):
+            continue
+        total = {}
+        for r in ranks:
+            for name in ("mp_train", "mp_moe", "mp_moe_dp"):
+                n = r[name]["launches"].get(row["name"], 0)
+                if n:
+                    total[name] = total.get(name, 0) + n
+        row["launches_model_parallel"] = sum(total.values())
+        row["launches_model_parallel_by_subphase"] = total
+    secs = time.perf_counter() - t0
+    emit({"phase": "model_parallel_seconds", "seconds": secs})
+    return {"seconds": secs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -4687,6 +5512,10 @@ def main(argv=None) -> int:
     quiet = resilience_total()
     phase_distribution(SEED, log, records)
     check_quiet("phase 14", quiet)
+    torch.cuda.empty_cache()
+    quiet = resilience_total()
+    phase_model_parallel(SEED, log, records)
+    check_quiet("phase 15", quiet)
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,6 +26,7 @@ __all__ = [
     "distributed_topk",
     "ring_all_reduce",
     "mean_over",
+    "all_reduce_sum",
     "init_error_feedback",
     "make_dp_grad_fn",
 ]
@@ -148,6 +149,41 @@ def mean_over(tensors: Sequence[torch.Tensor], mesh,
     if n > 1:
         for t in tensors:
             t.div_(n)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Σ over process groups whose gradient is the Σ of the ranks'
+    gradients (the adjoint of a sum that every rank reads whole)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        y = x.clone()
+        for group in groups:
+            dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(grad, group=group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes: Sequence[str]):
+    """``x`` summed over the mesh dimensions ``axes`` (those the mesh has),
+    differentiably: each rank's gradient is the sum of every rank's
+    gradient of the sum, so a loss that every rank computes from the same
+    reduced value, averaged over the ranks by a data-parallel step, counts
+    each rank's contribution once.  ``x`` itself when no axis has more
+    than one rank."""
+    names = list(mesh_axis_sizes(mesh))
+    groups = tuple(mesh.get_group(a) for a in axes
+                   if a in names and mesh_axis_sizes(mesh)[a] > 1)
+    if not groups:
+        return x
+    return _AllReduceSum.apply(x, groups)
 
 
 def init_error_feedback(params, num_shards: int):

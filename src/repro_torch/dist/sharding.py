@@ -15,6 +15,13 @@ block out of a tensor every rank holds whole.  A "mesh" may be a
 ``DeviceMesh``, a plain ``{axis: size}`` mapping, or an object whose
 ``shape`` is such a mapping (the reference's ``Mesh``): only the axis sizes
 are read, except where a rank's coordinate or a group is needed.
+
+On a ``DeviceMesh`` the models take DTensors: :func:`place_tree` places a
+parameter tree by a matching tree of logical axes, and
+:func:`on_local_shards` runs a function on each rank's local shards (the
+kernels, the binning passes, any op with no DTensor sharding rule) and
+wraps its outputs back, with autograd carried through.  Both are the
+identity off a mesh.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import threading
 from typing import Any, Mapping, Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 __all__ = [
     "AXIS_RULES",
@@ -35,6 +43,8 @@ __all__ = [
     "sharding_for",
     "local_block",
     "shard",
+    "place_tree",
+    "on_local_shards",
 ]
 
 # logical axis name → mesh axes tried in order (a tuple entry means "shard
@@ -139,14 +149,19 @@ def _entry_axes(entry) -> tuple:
 
 
 def placements_for(logical: Sequence[Optional[str]], shape: Sequence[int],
-                   mesh) -> list:
+                   mesh, partial: Sequence[str] = ()) -> list:
     """DTensor placements (one a mesh dimension) that give each rank the
     reference's block of a ``shape`` tensor: ``Shard(d)`` on every mesh
     axis that the rules assign to tensor dimension ``d``, else
     ``Replicate()``.  A dimension split over a product of axes is sharded
     on each of them; DTensor splits in mesh-dimension order, so the axes of
     the product must come in that order (the rules' ``("pod", "data")``
-    does on every mesh ``launch.mesh`` and ``dist.elastic`` build)."""
+    does on every mesh ``launch.mesh`` and ``dist.elastic`` build).
+
+    ``partial`` names mesh axes on which each rank holds a summand of the
+    tensor (``Partial()``): a local product's output before its sum over
+    ``model``, or a gradient before its sum over the batch axes.  An axis
+    the mesh lacks is skipped; one that shards a dimension is an error."""
     names = list(mesh.mesh_dim_names)
     placements = [Replicate() for _ in names]
     for d, entry in enumerate(logical_to_spec(logical, shape, mesh)):
@@ -158,6 +173,14 @@ def placements_for(logical: Sequence[Optional[str]], shape: Sequence[int],
                 f"the mesh's dimensions {tuple(names)}")
         for i in idx:
             placements[i] = Shard(d)
+    for a in partial:
+        if a not in names:
+            continue
+        i = names.index(a)
+        if placements[i] != Replicate():
+            raise ValueError(f"axis {a!r} shards the tensor "
+                             f"({placements[i]}); it cannot also be Partial")
+        placements[i] = Partial()
     return placements
 
 
@@ -208,3 +231,70 @@ def shard(x, *logical: Optional[str]):
     if not isinstance(x, DTensor):
         return x
     return x.redistribute(mesh, placements_for(logical, x.shape, mesh))
+
+
+def _is_axes(node) -> bool:
+    """A leaf of a logical-axes tree: a tuple of names and Nones."""
+    return isinstance(node, tuple) and all(a is None or isinstance(a, str)
+                                           for a in node)
+
+
+def place_tree(tree: Any, axes: Any, mesh,
+               src_data_rank: Optional[int] = 0) -> Any:
+    """``tree``'s tensors as DTensors on ``mesh``, each placed by the
+    logical axes at the same spot of ``axes`` (a tree of the same
+    structure whose leaves are tuples of names; ``None`` for the whole
+    tree replicates every leaf).  ``distribute_tensor`` keeps the values of
+    rank ``src_data_rank`` (scattered and broadcast from it), so every rank
+    starts from the same tensors; ``src_data_rank=None`` cuts each rank's
+    block from its own tensor, with no communication (for trees every rank
+    made alike, from one seed).  The tree itself off a mesh."""
+    from repro_torch.train.tree import tree_leaves, tree_unflatten
+
+    if mesh is None:
+        return tree
+    leaves = tree_leaves(tree)
+    specs = [None] * len(leaves) if axes is None else \
+        tree_leaves(axes, is_leaf=_is_axes)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} logical-axes leaves for "
+                         f"{len(leaves)} tensors")
+    out = []
+    for x, spec in zip(leaves, specs):
+        if len(spec if spec is not None else ()) not in (0, x.ndim):
+            raise ValueError(f"axes {spec} for a tensor of shape "
+                             f"{tuple(x.shape)}")
+        pl = placements_for(spec or (None,) * x.ndim, x.shape, mesh)
+        out.append(distribute_tensor(x, mesh, pl,
+                                     src_data_rank=src_data_rank))
+    return tree_unflatten(tree, out)
+
+
+def on_local_shards(fn, mesh, out_placements, in_placements,
+                    in_grad_placements=None):
+    """``fn`` run on each rank's local shards of its DTensor arguments,
+    its outputs wrapped back into DTensors (``local_map``).
+
+    ``in_placements`` (one entry a positional argument, None for a
+    non-tensor or a tensor that every rank passes whole) are the
+    placements ``fn`` needs: an argument placed otherwise is redistributed
+    to them first (the all-gather of an FSDP-sharded weight, of a
+    sequence-parallel activation).  ``out_placements`` say what each output
+    is across ranks: ``Partial()`` on ``model`` for a row-parallel product
+    before its sum.  ``in_grad_placements`` say what each argument's local
+    gradient is, where it differs from its placement: ``Partial()`` on the
+    batch axes for a weight that a data shard's tokens reach, on ``model``
+    for an activation that each rank's local heads reach; an entry of None
+    (or no ``in_grad_placements``) means the argument's own placements.
+    Off a mesh (``mesh`` None) ``fn`` itself."""
+    if mesh is None:
+        return fn
+    from torch.distributed.tensor.experimental import local_map
+
+    in_placements = tuple(in_placements)
+    grads = in_placements if in_grad_placements is None else tuple(
+        g if g is not None else p
+        for g, p in zip(in_grad_placements, in_placements))
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements, in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)

@@ -12,8 +12,10 @@ does a launch the CUDA runtime refuses (:func:`check_launch`): there is no
 fallback.
 
 :data:`launches` counts launches per kernel name; each launcher adds one
-where it launches its kernel and nowhere else.  Nothing here runs at import
-time.
+(:func:`count_launch`) where it launches its kernel and nowhere else, under
+a lock, and to the calling thread's own counter too
+(:func:`thread_launches`: the launches of one rank where the ranks of a
+mesh are threads of one process).  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 
 __all__ = ["SOURCES", "BACKENDS", "build", "load", "check_launch",
            "check_tensor", "pick_backend", "refuse_grad", "launches",
-           "reset_launches"]
+           "reset_launches", "count_launch", "thread_launches"]
 
 _KERNELS = Path(__file__).resolve().parent
 
@@ -60,10 +62,33 @@ launches: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def thread_launches() -> collections.Counter:
+    """The launches counted in the calling thread (since its last
+    :func:`reset_launches`)."""
+    own = getattr(_THREAD, "launches", None)
+    if own is None:
+        own = _THREAD.launches = collections.Counter()
+    return own
+
+
+def count_launch(*names: str):
+    """Add one launch of each kernel name in ``names``."""
+    own = thread_launches()
+    with _COUNT_LOCK:
+        for name in names:
+            launches[name] += 1
+            own[name] += 1
 
 
 def reset_launches():
-    launches.clear()
+    """Zero every count, and the calling thread's own."""
+    with _COUNT_LOCK:
+        launches.clear()
+    thread_launches().clear()
 
 
 def _source(name: str) -> Path:

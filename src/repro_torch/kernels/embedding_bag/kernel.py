@@ -95,6 +95,6 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
             out.data_ptr(), B, L, V, d, DTYPES[table.dtype],
             ID_DTYPES[indices.dtype], stream)
     cuda_build.check_launch(lib, "embedding_bag", rc)
-    cuda_build.launches["embedding_bag"] += 1
+    cuda_build.count_launch("embedding_bag")
     routes[ROUTES[route]] += 1
     return out

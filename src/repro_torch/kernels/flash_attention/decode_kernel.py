@@ -160,7 +160,7 @@ def _launch(q, k, v, *, scale, kv_len, split, softcap, merge: bool):
             splits, split,
             float(scale), float(softcap), stream)
     cuda_build.check_launch(lib, "flash_decode", rc)
-    cuda_build.launches["flash_decode"] += 1
+    cuda_build.count_launch("flash_decode")
     if merge:
         return out
     m = ws[:rows].view(B, Hkv, splits, G)

@@ -219,7 +219,7 @@ def flash_attention_fma_cuda(q, k, v, *, scale=None, causal=True, window=0,
             DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, float(scale),
             int(bool(causal)), int(window), float(softcap), stream)
     cuda_build.check_launch(lib, "flash_attention", rc)
-    cuda_build.launches["flash_attention"] += 1
+    cuda_build.count_launch("flash_attention")
     return out
 
 
@@ -264,8 +264,7 @@ def flash_attention_wgmma_cuda(q, k, v, *, scale=None, causal=True,
             Skv, D, float(scale), int(bool(causal)), int(window),
             float(softcap), stream)
     cuda_build.check_launch(lib, "flash_attention_wgmma", rc)
-    cuda_build.launches["flash_attention"] += 1
-    cuda_build.launches["flash_attention_wgmma"] += 1
+    cuda_build.count_launch("flash_attention", "flash_attention_wgmma")
     if lse is None:
         return out
     lse_stores["flash_attention_wgmma"] += 1
@@ -311,7 +310,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, scale=None, causal=True,
             Sq, Skv, D, float(scale), int(bool(causal)), int(window),
             float(softcap), stream)
     cuda_build.check_launch(lib, "flash_attention_bwd", rc)
-    cuda_build.launches["flash_attention_bwd"] += 1
+    cuda_build.count_launch("flash_attention_bwd")
     return dq, dk, dv
 
 
@@ -363,6 +362,6 @@ def flash_attention_bwd_wgmma_cuda(q, k, v, out, dout, lse, *, scale=None,
             Skv, D, float(scale), int(bool(causal)), int(window),
             float(softcap), stream)
     cuda_build.check_launch(lib, "flash_attention_bwd_wgmma", rc)
-    cuda_build.launches["flash_attention_bwd"] += 1
-    cuda_build.launches["flash_attention_bwd_wgmma"] += 1
+    cuda_build.count_launch("flash_attention_bwd",
+                            "flash_attention_bwd_wgmma")
     return dq, dk, dv

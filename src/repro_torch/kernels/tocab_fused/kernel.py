@@ -126,7 +126,7 @@ def _launch(name: str, values: torch.Tensor, window_idx, compact_idx,
             block_size, d, _REDUCE_CODE[reduce], _MODE_CODE[mode],
             int(eps is not None), stream)
     cuda_build.check_launch(lib, f"tocab_{name}", rc)
-    cuda_build.launches[name] += 1
+    cuda_build.count_launch(name)
     return out
 
 

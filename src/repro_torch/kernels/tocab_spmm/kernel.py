@@ -77,5 +77,5 @@ def tocab_spmm_cuda(values: torch.Tensor, window_idx: torch.Tensor,
             ptr(edge_mask), ptr(block_ids), ptr(out), k, nb, eb, block_size,
             local_budget, d, stream)
     cuda_build.check_launch(lib, "tocab_spmm", rc)
-    cuda_build.launches["tocab_spmm"] += 1
+    cuda_build.count_launch("tocab_spmm")
     return out

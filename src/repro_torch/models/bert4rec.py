@@ -10,11 +10,16 @@ dict shaped as the reference's tree (``item_emb``, ``pos_emb``, a
 ``blocks`` list, ``ln_out``, ``b_ln_out``).
 
 Scores, top-k and gathers are torch ops, as they are XLA ops in the
-reference: no TPU kernel runs on this path.  The reference's ``shard``
-calls are not made yet (models on a mesh are ROADMAP A12b); under
-``use_mesh_rules`` on a mesh with a ``model`` axis, :func:`bert4rec_score`
-takes the two-stage :func:`~repro_torch.dist.collectives.distributed_topk`,
-as the reference's does.  Training:
+reference: no TPU kernel runs on this path.  Under ``use_mesh_rules`` on a
+mesh with a ``model`` axis, :func:`bert4rec_score` takes the two-stage
+:func:`~repro_torch.dist.collectives.distributed_topk`, as the reference's
+does.  On a ``DeviceMesh`` the entry points take DTensors (replicated
+parameters, ``items`` split by ``batch``): the reference's ``shard`` calls
+place the hidden states by ``batch``, the scores and logits by ``vocab``
+(each rank's block of the items: the two-stage top-k's first stage is
+local) and the retrieval candidates by ``candidates``; the row gathers run
+on local shards (:func:`~.layers.take_rows`), and the retrieval's top-k
+takes the candidates' scores whole.  Training:
 :func:`bert4rec_loss_fn` (the full softmax below 50,000 items, the sampled
 softmax with shared negatives above) and :func:`binned_embedding_grad`
 (the embedding gradient sorted by row bin, then summed in that fixed
@@ -28,10 +33,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.collectives import distributed_topk
-from repro_torch.dist.sharding import current_mesh, mesh_axis_sizes
+from torch.distributed.tensor import DTensor, Replicate
 
-from .layers import _normal, cross_entropy_loss, init_dense
+from repro_torch.dist.collectives import distributed_topk
+from repro_torch.dist.sharding import current_mesh, mesh_axis_sizes, shard
+
+from .layers import _normal, cross_entropy_loss, init_dense, take_rows
 
 __all__ = ["Bert4RecCfg", "init_bert4rec", "params_from_numpy",
            "cast_params", "param_count", "bert4rec_encode", "bert4rec_score",
@@ -159,11 +166,11 @@ def bert4rec_encode(params: dict, items: Tensor, cfg: Bert4RecCfg,
     path: every step stays in bf16, the mask bias included."""
     B, L = items.shape
     p = cast_params(params, dtype)
-    items = items.long()
-    x = p["item_emb"][items] + p["pos_emb"][None, :L]
+    items = shard(items.long(), "batch", None)
+    x = shard(take_rows(p["item_emb"], items) + p["pos_emb"][None, :L],
+              "batch", None, None)
     pad = (items == cfg.pad_id)[:, None, None, :]  # (B, 1, 1, L)
-    bias = torch.zeros(pad.shape, dtype=dtype, device=x.device
-                       ).masked_fill_(pad, -1e30)
+    bias = torch.zeros_like(pad, dtype=dtype).masked_fill(pad, -1e30)
     H = cfg.n_heads
     hd = cfg.d_model // H
     for blk in p["blocks"]:
@@ -188,7 +195,8 @@ def bert4rec_score(params: dict, items: Tensor, cfg: Bert4RecCfg,
     ``lax.top_k``'s (the lower id first)."""
     p = cast_params(params, torch.bfloat16)
     user = bert4rec_encode(p, items, cfg, dtype=torch.bfloat16)[:, -1, :]
-    scores = (user @ p["item_emb"][: cfg.vocab].T).float()  # (B, V)
+    scores = shard(user @ p["item_emb"][: cfg.vocab].T, "batch",
+                   "vocab").float()  # (B, V)
     # §Perf H2: the two-stage top-k (the reference's choice on a mesh)
     mesh = current_mesh()
     if mesh is not None and "model" in mesh_axis_sizes(mesh):
@@ -202,8 +210,18 @@ def bert4rec_retrieve(params: dict, items: Tensor, candidates: Tensor,
     item ids ``candidates`` (C,), in fp32: one gather and one matrix-vector
     product; returns (top scores, top ids)."""
     user = bert4rec_encode(params, items, cfg)[0, -1, :]  # (d,)
-    cand_emb = params["item_emb"][candidates.long()]  # (C, d)
+    candidates = shard(candidates, "candidates")
+    cand_emb = shard(take_rows(params["item_emb"], candidates.long()),
+                     "candidates", None)  # (C, d)
     scores = (cand_emb @ user).float()
+    if isinstance(scores, DTensor):  # the top-k of the candidates, whole
+        mesh = scores.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        vals, idx = torch.topk(scores.redistribute(mesh, whole).to_local(),
+                               top_k)
+        ids = candidates.redistribute(mesh, whole).to_local()[idx]
+        return (DTensor.from_local(vals, mesh, whole, run_check=False),
+                DTensor.from_local(ids, mesh, whole, run_check=False))
     vals, idx = torch.topk(scores, top_k)
     return vals, candidates[idx]
 
@@ -217,7 +235,8 @@ def bert4rec_loss_fn(params: dict, batch: dict, cfg: Bert4RecCfg) -> tuple:
     h = bert4rec_encode(params, batch["items"], cfg)
     emb = params["item_emb"]
     if not cfg.sampled_softmax:
-        logits = torch.einsum("bld,vd->blv", h, emb[: cfg.vocab])
+        logits = shard(torch.einsum("bld,vd->blv", h, emb[: cfg.vocab]),
+                       "batch", None, "vocab")
         loss = cross_entropy_loss(logits, batch["labels"],
                                   batch["label_mask"])
         return loss, {"ce": loss}
@@ -226,8 +245,8 @@ def bert4rec_loss_fn(params: dict, batch: dict, cfg: Bert4RecCfg) -> tuple:
     hm = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))
     pos_labels, negatives = batch["pos_labels"].long(), \
         batch["negatives"].long()
-    pos_e = emb[pos_labels]  # (B, M, d)
-    neg_e = emb[negatives]  # (K, d)
+    pos_e = take_rows(emb, pos_labels)  # (B, M, d)
+    neg_e = take_rows(emb, negatives)  # (K, d)
     s_pos = (hm * pos_e).sum(-1)  # (B, M)
     s_neg = torch.einsum("bmd,kd->bmk", hm, neg_e)  # (B, M, K)
     # exclude accidental hits (negative == label)

@@ -16,13 +16,24 @@ JAX's ``segment_max`` does.
 
 Parameters are nested dicts and lists of fp32 tensors shaped as the
 reference's trees; :func:`params_from_numpy` carries the reference's
-parameters across.  The reference's ``shard(...)`` annotations are not
-made yet (models on a mesh are ROADMAP A12b).  ``binned_edges`` /
-``binned_triplets`` take :func:`_binned_segment_sum`: under
-``use_mesh_rules`` on a mesh whose ``data`` axis is > 1 the edge → node sum
-is stripe-local (rank ``r`` sums the values whose destinations lie in its
-stripe of nodes, with no collective); off a mesh, or where the shapes do
-not divide, it is the flat reduce, as in the reference.
+parameters across.  ``binned_edges`` / ``binned_triplets`` take
+:func:`_binned_segment_sum`: under ``use_mesh_rules`` on a mesh whose
+``data`` axis is > 1 the edge → node sum is stripe-local (rank ``r`` sums
+the values whose destinations lie in its stripe of nodes, with no
+collective); off a mesh, or where the shapes do not divide, it is the flat
+reduce, as in the reference.
+
+On a mesh the forwards take a batch of DTensors (:func:`place_batch`: node
+arrays split by ``nodes``, edge and triplet arrays by ``edges``, both over
+``data``) and replicated parameters, and the reference's ``shard`` calls
+place the node states and edge messages.  Three ops have no DTensor rule
+and run on local shards: a gather of rows by an index array
+(:func:`_take`: the rows are gathered whole on every rank, then each rank
+picks those its block of indices names), a flat segment sum (each rank
+sums its block of values into every row: a summand over ``data``), and a
+segment max (values gathered whole, reduced on every rank).
+:func:`bin_edges_by_stripe` lays a batch's edges out in the stripe order
+that ``binned_edges`` assumes.
 """
 from __future__ import annotations
 
@@ -34,13 +45,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import tocab
 from repro_torch.core.partition import BlockedGraph
-from repro_torch.dist.sharding import current_mesh, mesh_axis_sizes
+from repro_torch.dist.sharding import (current_mesh, mesh_axis_sizes,
+                                       on_local_shards, place_tree, shard)
 
-from .layers import _normal, init_dense
+from .layers import _normal, init_dense, row_placements
+from .layers import take_rows as _take
 
 Tensor = torch.Tensor
 
@@ -49,6 +62,7 @@ __all__ = [
     "init_gat", "gat_forward", "init_gin", "gin_forward",
     "init_sage", "sage_forward", "init_dimenet", "dimenet_forward",
     "gnn_loss_fn", "loss_denominator", "init_gnn", "gnn_forward",
+    "place_batch", "bin_edges_by_stripe",
 ]
 
 
@@ -121,10 +135,25 @@ def _agg(vals_e: Tensor, dst: Tensor, n: int, bg: Optional[BlockedGraph],
 
 def _flat_reduce(vals: Tensor, seg: Tensor, n: int, reduce: str) -> Tensor:
     """``segment_reduce`` into ``n`` rows; an id outside ``[0, n)`` (a padded
-    edge's ``n``) is dropped, as ``jax.ops.segment_*`` drop it."""
+    edge's ``n``) is dropped, as ``jax.ops.segment_*`` drop it.  On
+    DTensors a sum is each rank's block summed into every row (a summand
+    over the axes that split the values); any other reduce gathers the
+    values whole and reduces them on every rank."""
+    if isinstance(vals, DTensor) or isinstance(seg, DTensor):
+        return _reduce_on_mesh(vals, seg, n, reduce)
     seg = seg.long()
     seg = torch.where((seg >= 0) & (seg < n), seg, n)
     return tocab.segment_reduce(vals, seg, n + 1, reduce)[:n]
+
+
+def _reduce_on_mesh(vals, seg, n: int, reduce: str):
+    mesh, rows = row_placements(vals, seg)
+    if reduce != "sum":
+        rows = [Replicate()] * mesh.ndim
+    out = [Partial() if pl == Shard(0) else Replicate() for pl in rows]
+    return on_local_shards(
+        lambda v, s: _flat_reduce(v, s, n, reduce), mesh,
+        out_placements=out, in_placements=(rows, rows))(vals, seg)
 
 
 def _binned_segment_sum(vals, seg, n_out: int):
@@ -187,7 +216,7 @@ def _graph_readout(x: Tensor, batch: GraphBatch) -> Tensor:
     num_graphs = int(batch.labels.shape[0])
     if batch.node_mask is not None:
         x = x * batch.node_mask.to(x.dtype)[:, None]
-    return tocab.segment_reduce(x, batch.graph_ids, num_graphs, "sum")
+    return _flat_reduce(x, batch.graph_ids, num_graphs, "sum")
 
 
 def _device(device):
@@ -222,9 +251,10 @@ def _edge_softmax(scores_e: Tensor, dst: Tensor, n: int, edge_mask: Tensor,
     smax = _agg(s, dst, n, bg, reduce="max")  # (N, H)
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
     at = dst.long().clamp(0, n - 1)
-    ex = torch.exp(s - smax[at]) * edge_mask[:, None]
+    ex = shard(torch.exp(s - _take(smax, at)) * edge_mask[:, None], "edges",
+               None)
     denom = _agg(ex, dst, n, bg, reduce="sum")
-    return ex / torch.clamp(denom[at], min=1e-16)
+    return ex / torch.clamp(_take(denom, at), min=1e-16)
 
 
 def gat_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
@@ -236,13 +266,16 @@ def gat_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
         last = i == len(params["layers"]) - 1
         heads = 1 if last else cfg.n_heads
         d_out = p["w"].shape[1] // heads
-        h = (x @ p["w"]).reshape(n, heads, d_out)
+        h = shard((x @ p["w"]).reshape(n, heads, d_out), "nodes", None, None)
         # SDDMM: per-edge attention logits
         s_src = torch.einsum("nhd,hd->nh", h, p["a_src"])
         s_dst = torch.einsum("nhd,hd->nh", h, p["a_dst"])
-        scores = F.leaky_relu(s_src[src] + s_dst[dst], 0.2)  # (E, H)
+        scores = F.leaky_relu(_take(s_src, src) + _take(s_dst, dst),
+                              0.2)  # (E, H)
+        scores = shard(scores, "edges", None)
         alpha = _edge_softmax(scores, batch.edge_dst, n, batch.edge_mask, bg)
-        msgs = _masked_edges(batch, h[src] * alpha[..., None])  # (E, H, D)
+        msgs = _masked_edges(batch, _take(h, src) * alpha[..., None])
+        msgs = shard(msgs, "edges", None, None)  # (E, H, D)
         out = _agg(msgs.reshape(msgs.shape[0], -1), batch.edge_dst, n,
                    bg, binned=cfg.binned_edges).reshape(n, heads, d_out)
         x = out.reshape(n, heads * d_out)
@@ -280,7 +313,8 @@ def _neighbour_sum(x: Tensor, batch: GraphBatch, bg: Optional[BlockedGraph],
     messages through the flat (or binned) reduce."""
     if bg is not None:
         return tocab.tocab_pull(bg, x, reduce="sum")
-    msgs = _masked_edges(batch, x[_ends(batch)[0]])
+    msgs = shard(_masked_edges(batch, _take(x, _ends(batch)[0])), "edges",
+                 None)
     return _agg(msgs, batch.edge_dst, batch.n, None,
                 binned=cfg.binned_edges)
 
@@ -292,13 +326,12 @@ def gin_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
         agg = _neighbour_sum(x, batch, bg, cfg)
         h = (1.0 + p["eps"]) * x + agg
         h = torch.relu(h @ p["w1"] + p["b1"])
-        x = torch.relu(h @ p["w2"] + p["b2"])
+        x = shard(torch.relu(h @ p["w2"] + p["b2"]), "nodes", None)
     if cfg.graph_level:
         num_graphs = int(batch.labels.shape[0])
         gmask = batch.node_mask.to(x.dtype)[:, None] \
             if batch.node_mask is not None else 1.0
-        x = tocab.segment_reduce(x * gmask, batch.graph_ids, num_graphs,
-                                 "sum")
+        x = _flat_reduce(x * gmask, batch.graph_ids, num_graphs, "sum")
     return x @ params["head"]
 
 
@@ -330,7 +363,7 @@ def sage_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
         last = i == len(params["layers"]) - 1
         s = _neighbour_sum(x, batch, bg, cfg)
         mean = s / torch.clamp(deg[:, None], min=1.0)
-        x = x @ p["w_self"] + mean @ p["w_neigh"]
+        x = shard(x @ p["w_self"] + mean @ p["w_neigh"], "nodes", None)
         if not last:
             x = torch.relu(x)
             x = x / torch.clamp(torch.linalg.vector_norm(
@@ -369,7 +402,21 @@ def init_dimenet(generator: torch.Generator, cfg: GNNConfig,
     }
 
 
+def _rowwise(fn, x: Tensor) -> Tensor:
+    """``fn(x)`` for a function that maps each row on its own (and builds
+    plain constant tensors): on a DTensor, run on each rank's rows."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    rows = list(x.placements)
+    return on_local_shards(fn, x.device_mesh, out_placements=rows,
+                           in_placements=(rows,))(x)
+
+
 def _bessel_rbf(dist: Tensor, n_radial: int, cutoff: float) -> Tensor:
+    return _rowwise(lambda d: _bessel_rbf_rows(d, n_radial, cutoff), dist)
+
+
+def _bessel_rbf_rows(dist: Tensor, n_radial: int, cutoff: float) -> Tensor:
     """DimeNet radial basis: sin(nπ d/c) / d, n = 1..n_radial."""
     d = torch.clamp(dist, min=1e-6)[:, None]
     n = torch.arange(1, n_radial + 1, dtype=torch.float32,
@@ -379,6 +426,10 @@ def _bessel_rbf(dist: Tensor, n_radial: int, cutoff: float) -> Tensor:
 
 
 def _angular_basis(cos_angle: Tensor, n_spherical: int) -> Tensor:
+    return _rowwise(lambda c: _angular_rows(c, n_spherical), cos_angle)
+
+
+def _angular_rows(cos_angle: Tensor, n_spherical: int) -> Tensor:
     """Fourier angular basis cos(lθ), l = 0..n_spherical-1."""
     theta = torch.arccos(torch.clamp(cos_angle, -1.0 + 1e-6, 1.0 - 1e-6))
     l = torch.arange(n_spherical, dtype=torch.float32,
@@ -396,21 +447,22 @@ def dimenet_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
     src, dst = _ends(batch)
     t_kj, t_ji = batch.t_kj.long(), batch.t_ji
     pos = batch.positions
-    vec = pos[src] - pos[dst]  # edge j→i (src=j)
+    vec = shard(_take(pos, src) - _take(pos, dst), "edges",
+                None)  # edge j→i (src=j)
     dist = torch.linalg.vector_norm(vec + 1e-12, dim=-1)
     rbf = _bessel_rbf(dist, cfg.n_radial, cfg.cutoff)  # (E, nr)
-    rbf = rbf * batch.edge_mask[:, None]
+    rbf = shard(rbf * batch.edge_mask[:, None], "edges", None)
 
     # triplet geometry: angle between edge (k→j) and (j→i)
-    v1 = vec[t_ji.long()]
-    v2 = -vec[t_kj]
+    v1 = _take(vec, t_ji.long())
+    v2 = -_take(vec, t_kj)
     cos_a = (v1 * v2).sum(-1) / torch.clamp(
         torch.linalg.vector_norm(v1, dim=-1)
         * torch.linalg.vector_norm(v2, dim=-1), min=1e-12)
     ang = _angular_basis(cos_a, cfg.n_spherical)  # (T, ns)
-    sbf = (rbf[t_kj][:, :, None] * ang[:, None, :]).reshape(
+    sbf = (_take(rbf, t_kj)[:, :, None] * ang[:, None, :]).reshape(
         ang.shape[0], cfg.n_radial * cfg.n_spherical)
-    sbf = sbf * batch.t_mask[:, None]
+    sbf = shard(sbf * batch.t_mask[:, None], "edges", None)
 
     # edge message embedding
     dt = getattr(torch, cfg.compute_dtype)
@@ -421,29 +473,33 @@ def dimenet_forward(params: dict, batch: GraphBatch, cfg: GNNConfig,
     def wt(w):
         return w.to(dt)
 
-    m = F.silu(x_node[src] + x_node[dst] + rbf @ wt(params["rbf_proj"]))
+    m = F.silu(_take(x_node, src) + _take(x_node, dst)
+               + rbf @ wt(params["rbf_proj"]))
+    m = shard(m, "edges", None)
     E = src.shape[0]
     tmask = batch.t_mask.to(dt)[:, None]
     emask = batch.edge_mask.to(dt)[:, None]
     for blk in params["blocks"]:
         # directional (triplet) interaction: m_ji ← Σ_k up[(down m_kj) ⊙ (sbf W)]
-        m_down = (m @ wt(blk["w_down"]))[t_kj]
-        t_msg = m_down * (sbf @ wt(blk["w_sbf"]))  # (T, nb)
+        m_down = shard(_take(m @ wt(blk["w_down"]), t_kj), "edges", None)
+        t_msg = shard(m_down * (sbf @ wt(blk["w_sbf"])), "edges",
+                      None)  # (T, nb)
         if cfg.binned_triplets:
             t_agg = _binned_segment_sum(t_msg * tmask, t_ji, E)
         else:
-            t_agg = tocab.segment_reduce(t_msg * tmask, t_ji, E, "sum")
+            t_agg = _flat_reduce(t_msg * tmask, t_ji, E, "sum")
+        t_agg = shard(t_agg, "edges", None)
         m = F.silu(m @ wt(blk["w_msg"]) + t_agg @ wt(blk["w_up"])
                    + rbf @ wt(blk["w_rbf"]))
-        m = m * emask
+        m = shard(m * emask, "edges", None)
     # output: edge → node
     node_out = _agg(m * (rbf @ wt(params["out_rbf"])), batch.edge_dst, n, bg,
                     binned=cfg.binned_edges)
     node_out = node_out.float()
     if cfg.graph_level:
         num_graphs = int(batch.labels.shape[0])
-        node_out = tocab.segment_reduce(node_out, batch.graph_ids,
-                                        num_graphs, "sum")
+        node_out = _flat_reduce(node_out, batch.graph_ids, num_graphs,
+                                "sum")
     return node_out @ params["head"]
 
 
@@ -543,3 +599,67 @@ def build_triplets(src: np.ndarray, dst: np.ndarray, n: int,
     ji[:len(t_ji)] = t_ji
     mask[:len(t_kj)] = True
     return kj, ji, mask
+
+
+# --------------------------------------------------------------------- #
+# batches on a mesh
+# --------------------------------------------------------------------- #
+_NODE_FIELDS = ("node_feat", "node_mask", "positions", "graph_ids")
+_EDGE_FIELDS = ("edge_src", "edge_dst", "edge_mask", "t_kj", "t_ji",
+                "t_mask")
+
+
+def place_batch(batch: GraphBatch, mesh, graph_level: bool = False):
+    """``batch`` as DTensors on ``mesh`` by the reference's names: node
+    arrays (and node labels) split by ``nodes``, edge and triplet arrays by
+    ``edges`` (each over ``data`` where it divides), graph labels whole.
+    The batch itself off a mesh."""
+    if mesh is None:
+        return batch
+    fields = {}
+    for f in dataclasses.fields(batch):
+        x = getattr(batch, f.name)
+        if x is None:
+            continue
+        if f.name in _NODE_FIELDS or (f.name == "labels" and not graph_level):
+            name = "nodes"
+        elif f.name in _EDGE_FIELDS:
+            name = "edges"
+        else:
+            name = None
+        fields[f.name] = place_tree(x, (name,) + (None,) * (x.ndim - 1),
+                                    mesh)
+    return dataclasses.replace(batch, **fields)
+
+
+def bin_edges_by_stripe(batch: GraphBatch, shards: int) -> GraphBatch:
+    """The batch with its edges in the layout ``binned_edges`` assumes on
+    a mesh of ``shards`` data ranks: ``shards`` equal blocks, block ``r``
+    holding the real edges whose destinations lie in stripe ``r`` of the
+    ``n`` nodes (in their original order), padded with masked edges into
+    node ``n``.  The node count must divide by ``shards``; triplets, which
+    name edges by position, are not carried over."""
+    n = batch.n
+    if n % shards:
+        raise ValueError(f"{n} nodes do not split into {shards} stripes")
+    if batch.t_kj is not None:
+        raise ValueError("a batch with triplets: their edge ids would "
+                         "change with the edges' order")
+    src = batch.edge_src.cpu().numpy()
+    dst = batch.edge_dst.cpu().numpy()
+    real = batch.edge_mask.cpu().numpy() & (dst >= 0) & (dst < n)
+    owner = np.where(real, dst // (n // shards), shards)
+    blocks = [np.flatnonzero(owner == r) for r in range(shards)]
+    width = max(len(b) for b in blocks)
+    out_src = np.zeros((shards, width), np.int32)
+    out_dst = np.full((shards, width), n, np.int32)
+    out_mask = np.zeros((shards, width), bool)
+    for r, b in enumerate(blocks):
+        out_src[r, :len(b)] = src[b]
+        out_dst[r, :len(b)] = dst[b]
+        out_mask[r, :len(b)] = True
+    dev = batch.edge_src.device
+    return dataclasses.replace(
+        batch, edge_src=torch.from_numpy(out_src.reshape(-1)).to(dev),
+        edge_dst=torch.from_numpy(out_dst.reshape(-1)).to(dev),
+        edge_mask=torch.from_numpy(out_mask.reshape(-1)).to(dev))

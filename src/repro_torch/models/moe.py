@@ -9,12 +9,29 @@ per-expert GEMMs (``torch.bmm`` over the expert axis), then un-permute and
 combine — the reduction phase.  No (tokens × experts × capacity) one-hot
 tensor is made.
 
-The reference's two dispatch modes (``global``: one sort over all tokens;
-``sharded``: one per data shard of a mesh) coincide on one card: off a
-mesh the reference's ``sharded`` mode is one shard.  Both are accepted
-here and both take the single bin pass; dispatch across ranks (token and
-expert sharding) is ROADMAP A12b, and data-parallel training refuses a
-mixture of experts (``transformer.loss_denominator``).
+The reference's two dispatch modes: ``global`` (one sort over all
+tokens) and ``sharded`` (each data shard bins its own tokens into its own
+capacity slabs, capacity ``_capacity(n / shards)``; the reference's
+``vmap``).  Off a mesh both are one bin pass.  The shards are those of
+``("pod", "data")`` (``_num_token_shards``) and the block runs in one of
+three forms:
+
+* DTensor tokens: each rank bins its data shard's tokens
+  (``capacity`` over the batch axes) and runs the expert ``bmm`` s on its
+  local experts (``experts`` over ``model``); its combine is a summand over
+  ``model`` (:func:`_moe_on_mesh`).  ``global`` gathers the tokens first.
+* a plain tensor under a ``DeviceMesh`` (the data-parallel step, where
+  each rank holds its block of the batch): the rank's block is its shard,
+  binned alone.
+* a plain tensor under a mesh given as sizes (``{"data": 2}``): the whole
+  batch, its shards binned one after the other in one program.
+
+The Switch aux loss is E · Σ_e frac(e) · mean_prob(e), two means over
+the *global* batch's tokens: on a mesh each rank's counts of top-1 choices
+and sums of router probabilities (and its token count) are summed over the
+batch axes before the product (``all_reduce_sum``, whose gradient sums the
+ranks' gradients, so a data-parallel step that averages the ranks'
+gradients counts each token once).
 
 Where the port is careful to keep the reference's function:
 
@@ -38,19 +55,27 @@ from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.collectives import stable_topk
+from repro_torch.dist.collectives import all_reduce_sum, stable_topk
+from repro_torch.dist.sharding import (current_mesh, logical_to_spec,
+                                       mesh_axis_sizes, on_local_shards,
+                                       placements_for, shard)
 
-from .layers import _normal, init_dense
+from .layers import _normal, block_offset, init_dense, spec_axes
 
 __all__ = ["MoECfg", "init_moe", "moe_block", "route"]
 
 Tensor = torch.Tensor
 
-#: the reference's dispatch modes; one card runs both as one bin pass
+#: the reference's dispatch modes; off a mesh both are one bin pass
 DISPATCH_MODES = ("global", "sharded")
+#: the mesh axes whose shards bin their own tokens (the reference's order)
+TOKEN_AXES = ("pod", "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +87,7 @@ class MoECfg:
     capacity_factor: float = 1.25
     kind: str = "swiglu"  # expert MLP kind
     router_softcap: float = 0.0
-    dispatch: str = "sharded"  # global | sharded: one bin pass on one card
+    dispatch: str = "sharded"  # global | sharded: one bin pass off a mesh
 
 
 def init_moe(generator: torch.Generator, cfg: MoECfg, device=None) -> dict:
@@ -128,7 +153,7 @@ def _combine(expert_out: Tensor, slab_idx: Tensor, order: Tensor,
     order, with no atomics."""
     E, C, d = expert_out.shape
     flat_out = expert_out.reshape(E * C, d)
-    gathered = flat_out[slab_idx.clamp(max=E * C - 1)]
+    gathered = flat_out[slab_idx.clamp(0, E * C - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     contrib = gathered * sg[:, None].to(gathered.dtype)
     per_pair = torch.empty_like(contrib).index_copy_(0, order, contrib)
@@ -152,24 +177,135 @@ def _experts(params: dict, dispatched: Tensor, kind: str) -> Tensor:
     return torch.bmm(h, params["w_down"].to(dt))
 
 
+def _num_token_shards(n: int, mesh) -> int:
+    """The reference's shard count for ``n`` tokens: the product of the
+    mesh's ``("pod", "data")`` sizes when it divides ``n``, else 1 (and 1
+    off a mesh)."""
+    if mesh is None:
+        return 1
+    sizes = mesh_axis_sizes(mesh)
+    s = math.prod(sizes.get(a, 1) for a in TOKEN_AXES)
+    return s if (s > 1 and n % s == 0) else 1
+
+
+def _moe_tokens(params: dict, xt: Tensor, cfg: MoECfg, shards: int,
+                experts: tuple) -> tuple:
+    """The block on ``xt`` (n, d), its tokens cut into ``shards`` equal
+    shards binned one after the other, the expert GEMMs on experts
+    ``experts = (first, count)`` of ``params``' (local) weights → (out
+    (n, d) summed over those experts, top-1 counts (E,) fp32, router
+    probability sums (E,) fp32)."""
+    n, d = xt.shape
+    E = cfg.num_experts
+    probs, gate_vals, expert_ids = route(params, xt, cfg)
+    counts = F.one_hot(expert_ids[:, 0], E).float().sum(dim=0)
+    probsum = probs.sum(dim=0)
+    n_l = n // shards
+    C = _capacity(n_l, cfg)
+    e_lo, e_n = experts
+    outs = []
+    for s in range(shards):
+        rows = slice(s * n_l, (s + 1) * n_l)
+        dispatched, slab, _, sg, keep, order = _bin_and_dispatch(
+            xt[rows], gate_vals[rows], expert_ids[rows], E, C)
+        if e_n < E:  # this rank's experts' slabs and pairs
+            dispatched = dispatched[e_lo:e_lo + e_n]
+            slab = slab - e_lo * C
+            keep = keep & (slab >= 0) & (slab < e_n * C)
+        expert_out = _experts(params, dispatched, cfg.kind)
+        outs.append(_combine(expert_out, slab, order, sg, keep, n_l))
+    out = outs[0] if shards == 1 else torch.cat(outs)
+    return out, counts, probsum
+
+
+def _switch_aux(counts, probsum, n_tokens: int, E: int):
+    """E · Σ_e (counts(e) / n) · (probsum(e) / n)."""
+    return E * torch.sum((counts / n_tokens) * (probsum / n_tokens))
+
+
 def moe_block(params: dict, x: Tensor, cfg: MoECfg) -> tuple:
     """x (B, S, d) → (out (B, S, d) in x's dtype, Switch aux loss fp32)."""
     if cfg.dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch must be one of {DISPATCH_MODES}, got "
                          f"{cfg.dispatch!r}")
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(params, x, cfg)
     B, S, d = x.shape
     n = B * S
     E = cfg.num_experts
-    xt = x.reshape(n, d)
-    probs, gate_vals, expert_ids = route(params, xt, cfg)
+    mesh = current_mesh()
+    blocks = mesh is not None and hasattr(mesh, "get_group")
+    if blocks and cfg.dispatch == "global" \
+            and _num_token_shards(n, mesh) > 1:
+        raise ValueError(
+            "dispatch='global' on a rank's block of the batch: the global "
+            "sort needs every rank's tokens; run the model on DTensors "
+            "(their tokens are gathered) or dispatch='sharded'")
+    shards = 1 if blocks or cfg.dispatch == "global" else \
+        _num_token_shards(n, mesh)
+    out, counts, probsum = _moe_tokens(params, x.reshape(n, d), cfg, shards,
+                                       (0, E))
+    if blocks:  # the global batch's two means: Σ over the data ranks
+        packed = all_reduce_sum(torch.cat([
+            counts, probsum, torch.full((1,), float(n), device=x.device)]),
+            mesh, TOKEN_AXES)
+        counts, probsum, n = packed[:E], packed[E:2 * E], packed[2 * E]
+    return out.reshape(B, S, d).to(x.dtype), _switch_aux(counts, probsum,
+                                                         n, E)
 
-    # Switch aux loss: E · Σ_e fraction_tokens(e) · mean_prob(e)
-    frac = F.one_hot(expert_ids[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(frac * probs.mean(dim=0))
 
-    C = _capacity(n, cfg)
-    dispatched, slab, _, sg, keep, order = _bin_and_dispatch(
-        xt, gate_vals, expert_ids, E, C)
-    expert_out = _experts(params, dispatched, cfg.kind)
-    combined = _combine(expert_out, slab, order, sg, keep, n)
-    return combined.reshape(B, S, d).to(x.dtype), aux
+def _moe_on_mesh(params: dict, x, cfg: MoECfg) -> tuple:
+    """:func:`moe_block` on DTensors (the reference's ``capacity`` /
+    ``experts`` placements): the tokens split over the batch axes (gathered
+    for ``global``), whole over ``model``; each rank routes its tokens,
+    bins its shard(s) and runs the GEMMs of its experts (``experts`` over
+    ``model``, or its ``mlp`` block of every expert where the experts do
+    not divide).  Its combine is then a summand over ``model``, and so is
+    its router probability sum, which only ``model`` rank 0 contributes
+    (the router's gradient through the combine is split over the ranks'
+    experts, through the aux loss it is counted once)."""
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    n = B * S
+    E = cfg.num_experts
+    sharded = cfg.dispatch == "sharded"
+    x_spec = ("batch", None, None) if sharded else (None, None, None)
+    token_axes = spec_axes(x_spec, x.shape, mesh)
+    split_tokens = math.prod(mesh_axis_sizes(mesh)[a] for a in token_axes)
+    shards = (_num_token_shards(n, mesh) if sharded else 1) // split_tokens
+    w_spec = {"w_up": ("experts", None, "mlp"),
+              "w_gate": ("experts", None, "mlp"),
+              "w_down": ("experts", "mlp", None), "router": (None, None)}
+    up = logical_to_spec(w_spec["w_up"], params["w_up"].shape, mesh)
+    tp = "model" in up
+    e_n = E // mesh.size(mesh.mesh_dim_names.index("model")) \
+        if up[0] == "model" else E
+    e_lo = block_offset(mesh, "model", e_n) if up[0] == "model" else 0
+    contributes = not tp or mesh.get_local_rank("model") == 0
+    model = ("model",) if tp else ()
+    names = sorted(params)
+
+    def local(xl, *ws):
+        out, counts, probsum = _moe_tokens(dict(zip(names, ws)),
+                                           xl.reshape(-1, d), cfg, shards,
+                                           (e_lo, e_n))
+        if not contributes:
+            probsum = probsum * 0.0
+        return out.reshape(xl.shape).to(xl.dtype), counts, probsum
+
+    def pl(spec, shape, partial=()):
+        return placements_for(spec, shape, mesh, partial)
+
+    vec = ((None,), (E,))
+    out, counts, probsum = on_local_shards(
+        local, mesh,
+        out_placements=(pl(x_spec, x.shape, model),
+                        pl(*vec, token_axes), pl(*vec, token_axes + model)),
+        in_placements=[pl(x_spec, x.shape)] + [
+            pl(w_spec[k], params[k].shape) for k in names],
+        in_grad_placements=[pl(x_spec, x.shape, model)] + [
+            pl(w_spec[k], params[k].shape,
+               token_axes + (model if k == "router" else ()))
+            for k in names])(x, *[params[k] for k in names])
+    return shard(out, "batch", "seq", None), _switch_aux(counts, probsum,
+                                                         n, E)

@@ -24,6 +24,15 @@ A mixture-of-experts layer (``num_experts > 0``) holds a ``"moe"`` subtree
 (:mod:`.moe`) in place of ``"mlp"``; :func:`forward` returns the sum of its
 layers' Switch aux losses, and :func:`serve_decode` dispatches globally, as
 the reference's decode does.
+
+On a mesh the entry points take DTensors: parameters placed by
+:func:`param_logical_axes` (``place_tree``), tokens split over the batch
+axes, KV caches from ``init_cache(..., mesh=)``.  The reference's ``shard``
+calls are the placements between blocks: tokens by ``batch``, the
+embedding's output by ``embed`` (the residual stream split over ``model`` on
+its hidden dimension), the logits by ``vocab``.  The embedding and the
+unembedding run on each rank's block of the table (``vocab`` over
+``model``; a vocabulary that does not divide stays whole on every rank).
 """
 from __future__ import annotations
 
@@ -33,13 +42,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .layers import (AttnCfg, _normal, attention_block,
-                     cross_entropy_loss, decode_attention_block,
-                     init_attention, init_mlp, mlp_block, rms_norm)
+from repro_torch.dist.sharding import (on_local_shards, place_tree,
+                                       placements_for, shard)
+
+from .layers import (CACHE_AXES, AttnCfg, _normal, attention_block,
+                     block_offset, cross_entropy_loss,
+                     decode_attention_block, init_attention, init_mlp, like,
+                     mesh_of, mlp_block, rms_norm, spec_axes, split_on)
 from .moe import MoECfg, init_moe, moe_block
 
 __all__ = ["TransformerCfg", "KVCache", "init_params", "cast_params",
-           "params_from_numpy", "forward", "loss_fn", "loss_denominator",
+           "params_from_numpy", "param_logical_axes", "forward", "loss_fn",
+           "loss_denominator",
            "serve_prefill",
            "serve_decode",
            "cache_len", "init_cache", "param_count", "default_device"]
@@ -234,6 +248,36 @@ def params_from_numpy(tree: dict, cfg: TransformerCfg, device=None) -> dict:
     return params
 
 
+def param_logical_axes(cfg: TransformerCfg) -> dict:
+    """Logical sharding axes of each parameter, shaped as the port's tree:
+    the reference's ``param_logical_axes`` with its leading ``layers`` (or
+    ``("layers", None)``) entry dropped, one dict a layer.  ``fsdp`` is the
+    data axis (``AXIS_RULES``)."""
+    layer = {"ln_attn": (None,), "ln_mlp": (None,),
+             "attn": {"wq": ("fsdp", "heads", None),
+                      "wk": ("fsdp", "kv_heads", None),
+                      "wv": ("fsdp", "kv_heads", None),
+                      "wo": ("heads", None, "fsdp")}}
+    gated = cfg.mlp_kind in ("swiglu", "geglu")
+    if cfg.is_moe:
+        moe = {"router": ("fsdp", None),
+               "w_up": ("experts", "fsdp", "mlp"),
+               "w_down": ("experts", "mlp", "fsdp")}
+        if gated:
+            moe["w_gate"] = ("experts", "fsdp", "mlp")
+        layer["moe"] = moe
+    else:
+        mlp = {"w_up": ("fsdp", "mlp"), "w_down": ("mlp", "fsdp")}
+        if gated:
+            mlp["w_gate"] = ("fsdp", "mlp")
+        layer["mlp"] = mlp
+    tree = {"embed": ("vocab", "fsdp"), "ln_final": (None,),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = ("vocab", "fsdp")
+    return tree
+
+
 def cast_params(params: dict, cfg: TransformerCfg) -> dict:
     """A copy of ``params`` whose matmul weights are in ``compute_dtype``,
     made once at load; norms and the (un)embedding tables stay fp32, as the
@@ -262,25 +306,72 @@ def param_count(params: dict) -> int:
 # --------------------------------------------------------------------- #
 # forward (prefill)
 # --------------------------------------------------------------------- #
-def _ffn(p, h, cfg: TransformerCfg):
-    """The layer's MLP or MoE block on ``h`` → (out, aux)."""
+def _ffn(p, h, cfg: TransformerCfg, dispatch: Optional[str] = None):
+    """The layer's MLP or MoE block on ``h`` → (out, aux); ``dispatch``
+    overrides the config's MoE dispatch mode."""
     if cfg.is_moe:
-        return moe_block(p["moe"], h, cfg.moe_cfg())
+        mcfg = cfg.moe_cfg()
+        if dispatch is not None:
+            mcfg = dataclasses.replace(mcfg, dispatch=dispatch)
+        return moe_block(p["moe"], h, mcfg)
     return mlp_block(p["mlp"], h, cfg.mlp_kind), None
 
 
 def _layer_apply(p, x, positions, cfg: TransformerCfg, local: bool):
-    """One layer → (x, the layer's aux loss or None for a dense layer)."""
+    """One layer → (x, the layer's aux loss or None for a dense layer).
+    On a mesh each block's summands are added into the residual stream at
+    its placement."""
     acfg = cfg.attn_cfg(local)
     h = rms_norm(x, p["ln_attn"], plus_one=cfg.norm_plus_one)
-    x = x + attention_block(p["attn"], h, positions, acfg)
+    x = x + like(attention_block(p["attn"], h, positions, acfg), x)
     h = rms_norm(x, p["ln_mlp"], plus_one=cfg.norm_plus_one)
     y, aux = _ffn(p, h, cfg)
-    return x + y, aux
+    return x + like(y, x), aux
+
+
+def _table_placements(table, x_spec, x_shape, mesh) -> tuple:
+    """(table in, table grad, whether ``vocab`` is split) for a block that
+    reads the (un)embedding table on ``mesh``: rows by ``vocab``, its
+    ``fsdp`` dimension gathered, its gradient a summand over the batch
+    axes that split ``x``."""
+    spec = ("vocab", None)
+    batch = spec_axes(x_spec, x_shape, mesh)
+    return (placements_for(spec, table.shape, mesh),
+            placements_for(spec, table.shape, mesh, batch),
+            split_on(spec, table.shape, mesh))
 
 
 def _embed(params, tokens, cfg: TransformerCfg):
-    x = params["embed"][tokens]
+    mesh = mesh_of(tokens)
+    if mesh is None:
+        return _embed_rows(params["embed"], tokens, cfg)
+    table = params["embed"]
+    t_spec = ("batch",) + (None,) * (tokens.ndim - 1)
+    t_in, t_grad, split = _table_placements(table, t_spec, tokens.shape,
+                                            mesh)
+
+    def local(tab, tok):
+        if not split:
+            return _embed_rows(tab, tok, cfg)
+        lo = block_offset(mesh, "model", tab.shape[0])
+        at = tok.long() - lo
+        own = (at >= 0) & (at < tab.shape[0])
+        x = _embed_rows(tab, at.clamp(0, tab.shape[0] - 1), cfg)
+        return torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+    x_spec = t_spec + (None,)
+    x_shape = tuple(tokens.shape) + (cfg.d_model,)
+    return on_local_shards(
+        local, mesh,
+        out_placements=placements_for(x_spec, x_shape, mesh,
+                                      ("model",) if split else ()),
+        in_placements=(t_in, placements_for(t_spec, tokens.shape, mesh)),
+        in_grad_placements=(t_grad, None))(table, tokens)
+
+
+def _embed_rows(table, tokens, cfg: TransformerCfg):
+    x = table[tokens]
     if cfg.embed_scale:
         x = x * cfg.d_model ** 0.5
     return x.to(cfg.dtype)
@@ -288,6 +379,23 @@ def _embed(params, tokens, cfg: TransformerCfg):
 
 def _unembed(params, x, cfg: TransformerCfg):
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    mesh = mesh_of(x)
+    if mesh is None:
+        return _logits(x, table, cfg)
+    x_spec = ("batch",) + (None,) * (x.ndim - 1)
+    t_in, t_grad, split = _table_placements(table, x_spec, x.shape, mesh)
+    out_spec = x_spec[:-1] + ("vocab",)
+    out_shape = tuple(x.shape[:-1]) + (table.shape[0],)
+    model = ("model",) if split else ()
+    return on_local_shards(
+        lambda xl, tab: _logits(xl, tab, cfg), mesh,
+        out_placements=placements_for(out_spec, out_shape, mesh),
+        in_placements=(placements_for(x_spec, x.shape, mesh), t_in),
+        in_grad_placements=(placements_for(x_spec, x.shape, mesh, model),
+                            t_grad))(x, table)
+
+
+def _logits(x, table, cfg: TransformerCfg):
     logits = x.float() @ table.float().T
     if cfg.final_softcap > 0.0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
@@ -295,16 +403,23 @@ def _unembed(params, x, cfg: TransformerCfg):
 
 
 def _hidden(params, tokens, cfg: TransformerCfg):
-    """→ (final normed hidden states, summed aux loss fp32)."""
+    """→ (final normed hidden states, summed aux loss fp32).  On a mesh
+    (DTensor tokens) the positions are one row, broadcast over each rank's
+    batch block."""
     _check_layers(cfg)
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(params, tokens, cfg)
-    aux = torch.zeros((), device=x.device)
+    tokens = shard(tokens, "batch", None)
+    positions = torch.arange(S, device=tokens.device)[None]
+    if mesh_of(tokens) is None:
+        positions = positions.expand(B, S)
+    x = shard(_embed(params, tokens, cfg), "batch", None, "embed")
+    aux = None
     for i, p in enumerate(params["layers"]):
         x, a = _layer_apply(p, x, positions, cfg, cfg.layer_is_local(i))
         if a is not None:
-            aux = aux + a
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), device=tokens.device)
     return rms_norm(x, params["ln_final"], plus_one=cfg.norm_plus_one), aux
 
 
@@ -314,7 +429,7 @@ def forward(params: dict, tokens: Tensor, cfg: TransformerCfg) -> tuple:
     through the ``flash_attention`` kernel on the card, through its plain
     version on the CPU."""
     x, aux = _hidden(params, tokens, cfg)
-    return _unembed(params, x, cfg), aux
+    return shard(_unembed(params, x, cfg), "batch", None, "vocab"), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: TransformerCfg) -> tuple:
@@ -333,15 +448,10 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerCfg) -> tuple:
 def loss_denominator(batch: dict, cfg: TransformerCfg) -> Tensor:
     """The count :func:`loss_fn`'s mean divides by on ``batch``: its target
     tokens, or the ``loss_mask``'s sum over them (a data-parallel step
-    weighs the ranks' losses by it).  A mixture of experts has none: its
-    load-balancing loss multiplies two means over the batch's tokens, so
-    no weighing of the ranks' losses gives the global batch's."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "data-parallel training of a mixture of experts: its aux loss "
-            "(fraction routed × mean router probability, per expert) has no "
-            "denominator that weighs the ranks' losses into the global "
-            "batch's; token and expert sharding are ROADMAP A12b")
+    weighs the ranks' losses by it).  A mixture of experts' load-balancing
+    loss is the global batch's on every rank already (:mod:`.moe`
+    all-reduces its two means' numerators and counts), so the count weighs
+    its cross-entropy alone."""
     mask = batch.get("loss_mask")
     if mask is None:
         return torch.tensor(float(batch["tokens"][:, 1:].numel()))
@@ -387,12 +497,16 @@ def cache_len(cfg: TransformerCfg, horizon: int) -> int:
 
 
 def init_cache(cfg: TransformerCfg, batch: int, horizon: int,
-               dtype=torch.bfloat16, device=None) -> KVCache:
+               dtype=torch.bfloat16, device=None, mesh=None) -> KVCache:
+    """Zeroed caches; on ``mesh`` DTensors split by ``batch`` and
+    ``kv_heads`` (:data:`~.layers.CACHE_AXES`), which a decode step writes
+    rank by rank."""
     device = default_device() if device is None else torch.device(device)
     hk, hd = cfg.n_kv_heads, cfg.head_dim
 
     def zeros(n, s):
-        return torch.zeros((n, batch, hk, s, hd), dtype=dtype, device=device)
+        z = torch.zeros((n, batch, hk, s, hd), dtype=dtype, device=device)
+        return place_tree(z, (None,) + CACHE_AXES, mesh)
 
     if cfg.pair_scan:
         n = cfg.n_layers // 2
@@ -408,19 +522,18 @@ def serve_decode(params: dict, token: Tensor, pos: int, cache: KVCache,
     """One decode step.  token (B, 1) int; ``pos`` a Python int (the host
     loop's position).  Writes the step's K/V into ``cache`` in place and
     returns (logits (B, V) fp32, cache).  Every layer's attention goes
-    through the ``flash_decode`` kernel on the card.  The reference's
-    decode dispatches MoE layers globally; on one card both dispatch modes
-    are the same single bin pass, so the config's mode is used as is."""
+    through the ``flash_decode`` kernel on the card.  MoE layers dispatch
+    globally, as the reference's decode does."""
     _check_layers(cfg)
     pos = int(pos)
-    x = _embed(params, token, cfg)
+    x = shard(_embed(params, token, cfg), "batch", None, "embed")
     for i, p in enumerate(params["layers"]):
         acfg = cfg.attn_cfg(cfg.layer_is_local(i))
         kc, vc = cache.layer(i, cfg)
         h = rms_norm(x, p["ln_attn"], plus_one=cfg.norm_plus_one)
         o, _, _ = decode_attention_block(p["attn"], h, pos, kc, vc, acfg)
-        x = x + o
+        x = x + like(o, x)
         h = rms_norm(x, p["ln_mlp"], plus_one=cfg.norm_plus_one)
-        x = x + _ffn(p, h, cfg)[0]
+        x = x + like(_ffn(p, h, cfg, dispatch="global")[0], x)
     x = rms_norm(x, params["ln_final"], plus_one=cfg.norm_plus_one)
     return _unembed(params, x[:, 0, :], cfg), cache

@@ -57,11 +57,14 @@ def chain(*ts: Transform) -> Transform:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ over leaves of Σ x²), in fp32, leaves in the reference's order."""
+    """√(Σ over leaves of Σ x²), in fp32, leaves in the reference's order;
+    over DTensor leaves a replicated DTensor scalar."""
     total = 0
     for x in tree_leaves(tree):
         total = total + x.to(_F32).square().sum()
-    return torch.sqrt(torch.as_tensor(total, dtype=_F32))
+    if not isinstance(total, torch.Tensor):
+        total = torch.as_tensor(total, dtype=_F32)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:

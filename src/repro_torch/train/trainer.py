@@ -19,8 +19,19 @@ rank's loss divides by the same count, so on a mesh the step needs the
 loss's ``denominator`` (batch → the count its mean divides by): the ranks
 all-reduce it and weigh their gradients, losses and metrics by
 ``w_r · S / Σ w`` before the mean, which is exactly 1 (no multiply) when
-the counts agree.  A ``model`` axis > 1 (tensor and expert parallelism) is
-ROADMAP A12b.
+the counts agree (a weight other than 1 scales the loss before its
+backward, so a loss that is already the global batch's, as a mixture of
+experts' aux term, is not weighed twice).
+
+On a mesh whose ``model`` axis is > 1 the step runs the model on
+DTensors (tensor and expert parallelism): the parameters are placed by
+``param_axes`` (the model's ``param_logical_axes``; every leaf replicated
+without one), each microbatch is the data ranks' blocks as one DTensor
+(split over the batch axes, whole over ``model``), the loss is the global
+batch's, and each gradient comes back at its parameter's placement
+(DTensor sums the summands over the batch axes).  The fp32 accumulation,
+``global_norm`` and the optimizer run on the DTensor leaves; the loss and
+metrics come back as plain tensors, equal on every rank.
 
 The step time is taken after ``torch.cuda.synchronize()`` when the loss
 lives on the card (the counterpart of ``block_until_ready``).  Metrics go
@@ -36,9 +47,12 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.dist.collectives import mean_over
-from repro_torch.dist.sharding import mesh_axis_sizes, use_mesh_rules
+from repro_torch.dist.sharding import (logical_to_spec, mesh_axis_sizes,
+                                       place_tree, placements_for,
+                                       use_mesh_rules)
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import registry as _obs
 
@@ -46,36 +60,81 @@ from . import checkpoint as ckpt_lib
 from .optim import Transform, apply_updates, global_norm
 from .tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["make_train_step", "Trainer", "StragglerWatchdog"]
+__all__ = ["make_train_step", "Trainer", "StragglerWatchdog",
+           "batch_on_mesh", "is_tensor_parallel"]
 
 
-def _value_and_grad(loss_fn: Callable, params, batch):
-    """(loss, metrics, grads) of ``loss_fn(params, batch)``; grads shaped as
-    ``params``, zeros where the loss does not depend on a leaf."""
+def _value_and_grad(loss_fn: Callable, params, batch, weight: float = 1.0):
+    """(loss, metrics, grads) of ``weight · loss_fn(params, batch)`` (the
+    metrics weighed alike); grads shaped as ``params``, zeros where the loss
+    does not depend on a leaf.  A DTensor leaf's gradient comes back at the
+    leaf's placements."""
     live = [x.detach().requires_grad_(x.is_floating_point())
             for x in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, live), batch)
+    if weight != 1.0:
+        loss = loss * weight
+        metrics = {k: v * weight for k, v in metrics.items()}
     wrt = [x for x in live if x.requires_grad]
     got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = []
     for x in live:
         g = next(got) if x.requires_grad else None
-        grads.append(torch.zeros_like(x) if g is None else g)
+        if g is None:
+            g = torch.zeros_like(x)
+        elif isinstance(g, DTensor) and g.placements != x.placements:
+            g = g.redistribute(x.device_mesh, x.placements)
+        grads.append(g)
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
+def _plain(x):
+    """A replicated DTensor as the plain tensor every rank holds."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def is_tensor_parallel(mesh) -> bool:
+    """Whether ``mesh`` has a ``model`` axis of more than one rank (the
+    step then runs the model on DTensors)."""
+    return mesh is not None and mesh_axis_sizes(mesh).get("model", 1) > 1
+
+
+def batch_on_mesh(batch, mesh):
+    """This rank's block of a batch (each leaf's leading dimension; the
+    blocks of the data ranks in rank order, equal over ``model``) as
+    DTensors of the global batch: split over the batch axes by the
+    ``batch`` rule, whole over ``model``."""
+    sizes = mesh_axis_sizes(mesh)
+
+    def wrap(x):
+        if not isinstance(x, torch.Tensor) or x.ndim == 0:
+            return x
+        spec = ("batch",) + (None,) * (x.ndim - 1)
+        n = 1
+        for a in ("pod", "data"):
+            n *= sizes.get(a, 1)
+        shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+        got = logical_to_spec(spec, shape, mesh)[0]
+        axes = () if got is None else (got,) if isinstance(got, str) \
+            else got
+        if n > 1 and sorted(axes) != sorted(a for a in ("pod", "data")
+                                            if sizes.get(a, 1) > 1):
+            raise ValueError(f"a batch block of {x.shape[0]} rows does not "
+                             f"split over the batch axes of {sizes} by the "
+                             f"'batch' rule")
+        return DTensor.from_local(x, mesh, placements_for(spec, shape, mesh),
+                                  run_check=False)
+
+    return tree_map(wrap, batch)
+
+
 def data_parallel_axes(mesh) -> tuple:
     """The mesh axes a data-parallel step reduces over (those of ``("pod",
-    "data")`` the mesh has); refuses a mesh that shards anything else."""
+    "data")`` the mesh has); refuses a mesh with another axis of more than
+    one rank."""
     sizes = mesh_axis_sizes(mesh)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with a 'model' axis of {sizes['model']}: tensor and "
-            "expert parallelism (the models' shard() calls on DTensors) are "
-            "ROADMAP A12b; the port trains data-parallel, on a mesh whose "
-            "'model' axis is 1")
     other = sorted(a for a, n in sizes.items()
                    if a not in ("pod", "data", "model") and n > 1)
     if other:
@@ -123,13 +182,17 @@ def make_train_step(
     accumulates fp32 gradients across the microbatches inside one step.
     ``compress_grads`` rounds the gradient through bf16 (what the
     reference casts the cross-replica gradient to).  With ``mesh`` (a
-    ``DeviceMesh``, ``model`` axis 1) ``batch`` is this rank's block and
-    ``denominator(microbatch)`` the count ``loss_fn``'s mean divides by;
-    gradients, loss and metrics are the global batch's on every rank."""
+    ``DeviceMesh``) ``batch`` is this rank's block; on a ``model`` axis of 1
+    ``denominator(microbatch)`` is the count ``loss_fn``'s mean divides by;
+    gradients, loss and metrics are the global batch's on every rank.  On
+    a ``model`` axis > 1 the parameters and optimizer state are DTensors
+    (:meth:`Trainer.init_state` places them) and no denominator is
+    needed."""
     axes = ()
+    tp = is_tensor_parallel(mesh)
     if mesh is not None:
         axes = data_parallel_axes(mesh)
-        if denominator is None:
+        if denominator is None and not tp:
             raise ValueError(
                 "a data-parallel step needs denominator=: the count "
                 "loss_fn's mean divides by on a batch (its target tokens, "
@@ -140,36 +203,38 @@ def make_train_step(
     def step(params, opt_state, batch):
         mbs = [batch] if grad_accum == 1 else \
             [tree_map(lambda x: x[i], batch) for i in range(grad_accum)]
-        if mesh is None:
+        if mesh is None or tp:
             weights = [1.0] * grad_accum
         else:
             weights = _rank_weights(denominator, mbs, tree_leaves(params)[0]
                                     .device, mesh, axes)
+        if tp:
+            mbs = [batch_on_mesh(mb, mesh) for mb in mbs]
 
-        def weigh(x, i):
-            return x if weights[i] == 1.0 else x * weights[i]
+        def value_and_grad(i):
+            loss, metrics, grads = _value_and_grad(loss_fn, params, mbs[i],
+                                                   weights[i])
+            return _plain(loss), {k: _plain(v) for k, v in
+                                  metrics.items()}, grads
 
         if grad_accum == 1:
-            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
-            loss = weigh(loss, 0)
-            metrics = {k: weigh(v, 0) for k, v in metrics.items()}
-            grads = tree_map(lambda g: weigh(g, 0), grads)
+            loss, metrics, grads = value_and_grad(0)
         else:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params)
             losses, metricses = [], []
-            for i, mb in enumerate(mbs):
-                loss, metrics, grads = _value_and_grad(loss_fn, params, mb)
-                acc = tree_map(lambda a, g: a + weigh(g.to(torch.float32), i),
-                               acc, grads)
-                losses.append(weigh(loss, i))
-                metricses.append({k: weigh(v, i) for k, v in metrics.items()})
+            for i in range(grad_accum):
+                loss, metrics, grads = value_and_grad(i)
+                acc = tree_map(lambda a, g: a + g.to(torch.float32), acc,
+                               grads)
+                losses.append(loss)
+                metricses.append(metrics)
             grads = tree_map(lambda g: g / grad_accum, acc)
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([torch.as_tensor(m[k])
                                        for m in metricses]).mean()
                        for k in metricses[0]}
-        if mesh is not None:
+        if mesh is not None and not tp:
             # one all_reduce for the scalars, one a gradient leaf
             names = sorted(metrics)
             scalars = torch.stack([loss] + [
@@ -185,7 +250,7 @@ def make_train_step(
         params = apply_updates(params, updates)
         metrics = dict(metrics)
         metrics["loss"] = loss
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = _plain(global_norm(grads))
         return params, opt_state, metrics
 
     return step
@@ -244,11 +309,14 @@ class Trainer:
     """Checkpoint-resumable training loop (restart-safe by construction:
     state = (params, opt_state, step) is fully captured per checkpoint).
 
-    ``mesh``: None (one device) or a ``DeviceMesh`` whose ``model`` axis is
-    1, on which the step is data-parallel (see :func:`make_train_step`) and
-    ``denominator`` is required; the loop runs under ``use_mesh_rules``,
-    every rank calls :meth:`run` with its own batches, and rank 0 writes
-    the checkpoints.  ``donate`` is accepted and changes nothing (a step's
+    ``mesh``: None (one device) or a ``DeviceMesh``.  On a ``model`` axis
+    of 1 the step is data-parallel (see :func:`make_train_step`) and
+    ``denominator`` is required; on a ``model`` axis > 1 the parameters are
+    placed by ``param_axes`` (a tree of logical axes, such as the
+    transformer's ``param_logical_axes(cfg)``; None replicates them).  The
+    loop runs under ``use_mesh_rules``, every rank calls :meth:`run` with
+    its own batches, and rank 0 writes the checkpoints (DTensor leaves
+    gathered first).  ``donate`` is accepted and changes nothing (a step's
     old state is dropped as soon as the new one is assigned)."""
 
     loss_fn: Callable
@@ -260,6 +328,7 @@ class Trainer:
     mesh: Any = None
     donate: bool = True
     denominator: Optional[Callable] = None  # batch -> loss_fn's divisor
+    param_axes: Any = None  # logical axes of the params (model axis > 1)
 
     def __post_init__(self):
         self._step_fn = make_train_step(self.loss_fn, self.optimizer,
@@ -273,8 +342,11 @@ class Trainer:
     def init_state(self, params):
         """(params, optimizer state); on a mesh the parameters are first
         broadcast from the mesh's first rank, so every rank starts from the
-        same values."""
-        if self.mesh is not None:
+        same values (on a ``model`` axis > 1: placed by ``param_axes`` as
+        DTensors, the first rank's values scattered)."""
+        if is_tensor_parallel(self.mesh):
+            params = place_tree(params, self.param_axes, self.mesh)
+        elif self.mesh is not None:
             for a in data_parallel_axes(self.mesh):
                 group = self.mesh.get_group(a)
                 src = torch.distributed.get_global_rank(group, 0)

@@ -20,9 +20,12 @@
   different label counts, through the same comparison with the loss's
   denominator; the same with equal weights (a mean of the ranks' means)
   misses, so the weighing is what makes it right.
-* A ``model`` axis > 1 raises ``NotImplementedError`` naming A12b; a mesh
-  without ``denominator`` raises ``ValueError``; a mixture of experts has
-  no denominator.
+* A ``model`` axis > 1 trains: ``Trainer(mesh=)`` on a (1, 2) mesh of the
+  same two ranks (parameters placed by ``param_logical_axes``) matches
+  one device at the same tolerances; a mesh given as sizes, without
+  process groups, is refused.  A data-parallel mesh without
+  ``denominator`` raises ``ValueError``; a mixture of experts' denominator
+  is its target tokens' count, as a dense model's.
 * ``launch.train.main`` on 2 gloo ranks with ``--device cpu`` trains
   (rank 0 logs) and returns the history, equal on both ranks and close to
   the single-process run's.
@@ -33,6 +36,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro.data.tokens import synthetic_lm_batches as r_batches
 from repro_torch.configs import get_arch
@@ -73,7 +77,9 @@ def _b4_batches(mesh=None):
 
 
 def _train(mesh, kind: str, grad_accum: int = 1, weighed: bool = True):
-    """(history losses, final params as numpy) of 3 steps of ``kind``."""
+    """(history losses, final params as numpy) of 3 steps of ``kind``; on
+    a mesh with a ``model`` axis > 1 the LM's parameters are placed by
+    ``param_logical_axes`` (and gathered whole at the end)."""
     opt = sgd(constant_schedule(0.05), momentum=0.9)
     if kind == "lm":
         cfg = _lm_cfg()
@@ -93,11 +99,15 @@ def _train(mesh, kind: str, grad_accum: int = 1, weighed: bool = True):
         if not weighed:
             den = lambda b: torch.tensor(1.0)  # noqa: E731
     tr = Trainer(loss_fn=loss_fn, optimizer=opt, grad_accum=grad_accum,
-                 mesh=mesh, denominator=den if mesh is not None else None)
+                 mesh=mesh, denominator=den if mesh is not None else None,
+                 param_axes=tfm.param_logical_axes(cfg) if kind == "lm"
+                 else None)
     p, s = tr.init_state(params)
     p, _, hist = tr.run(p, s, batches, num_steps=STEPS, log_every=1,
                         log_fn=lambda *_: None)
-    return [h["loss"] for h in hist], [x.numpy() for x in tree_leaves(p)]
+    return [h["loss"] for h in hist], [
+        (x.full_tensor() if isinstance(x, DTensor) else x).numpy()
+        for x in tree_leaves(p)]
 
 
 def _train_worker(rank, world):
@@ -119,13 +129,10 @@ def _train_worker(rank, world):
         out[(kind, ga, weighed)] = _train(mesh, kind, ga, weighed)
     out["denominators"] = [float(B4.loss_denominator(b, _b4_cfg()))
                            for b in itertools.islice(_b4_batches(mesh), 3)]
-    # a model axis > 1
+    # a model axis > 1: the same two ranks as a (1, 2) mesh
     mp = make_mesh_for(model_parallel=2)
-    try:
-        Trainer(loss_fn=None, optimizer=None, mesh=mp,
-                denominator=lambda b: 1.0)
-    except NotImplementedError as e:
-        out["mp_error"] = str(e)
+    out["mp_mesh"] = tuple(mp.mesh.shape)
+    out["mp"] = _train(mp, "lm")
     out["main"] = launch.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
                                "--steps", "3", "--batch", "4", "--seq", "16",
                                "--log-every", "1"])
@@ -181,8 +188,12 @@ def test_masked_loss_weighs_the_ranks_by_its_denominator(ranks):
 
 
 def test_model_axis_is_refused_naming_a12b(ranks):
-    assert "A12b" in ranks[0]["mp_error"]
-    with pytest.raises(NotImplementedError, match="A12b"):
+    """What this refused (a ``model`` axis > 1) now trains: tensor
+    parallelism on the (1, 2) mesh matches one device; only a mesh without
+    process groups is refused."""
+    assert ranks[0]["mp_mesh"] == (1, 2)
+    _check_against_single(ranks, "mp", "lm", 1)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(lambda p, b: None, sgd(constant_schedule(0.1)),
                         mesh={"data": 2, "model": 2},
                         denominator=lambda b: 1.0)
@@ -201,9 +212,11 @@ def test_a_mesh_needs_the_denominator():
 
 
 def test_moe_has_no_denominator():
+    """A mixture of experts now has one: its target tokens, as a dense
+    model (its aux loss is the global batch's on every rank already)."""
     cfg = get_arch("granite-moe-3b-a800m").make_smoke_cfg()
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tfm.loss_denominator({"tokens": torch.zeros(2, 5)}, cfg)
+    assert float(tfm.loss_denominator(
+        {"tokens": torch.zeros(2, 5, dtype=torch.int32)}, cfg)) == 8.0
     dense = _lm_cfg()
     batch = {"tokens": torch.zeros(2, 5, dtype=torch.int32)}
     assert float(tfm.loss_denominator(batch, dense)) == 8.0

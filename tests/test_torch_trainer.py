@@ -93,12 +93,14 @@ def test_batch_tokens_counts_the_largest_integer_leaf():
 
 
 def test_mesh_is_refused():
-    """A mesh that shards the model (``model`` > 1) is refused, naming
-    ROADMAP A12b; a data-parallel mesh trains
+    """A mesh without process groups is refused, whatever its ``model``
+    axis: a ``DeviceMesh`` that shards the model trains
+    (tests/test_torch_tp_train.py), and so does a data-parallel one
     (tests/test_torch_dist_train.py)."""
-    with pytest.raises(NotImplementedError, match="A12b"):
-        Trainer(loss_fn=_linreg, optimizer=sgd(constant_schedule(0.1)),
-                mesh={"data": 2, "model": 2}, denominator=lambda b: 1.0)
+    for sizes in ({"data": 2, "model": 2}, {"data": 1, "model": 2}):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            Trainer(loss_fn=_linreg, optimizer=sgd(constant_schedule(0.1)),
+                    mesh=sizes, denominator=lambda b: 1.0)
     with pytest.raises(TypeError, match="mesh"):
         Trainer(loss_fn=_linreg, optimizer=sgd(constant_schedule(0.1)),
                 mesh=object())
