@@ -285,9 +285,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    within ``SUM_RTOL`` of the largest.  Each line: seconds and launches
    per rank, the peak memory of both ranks, ``gathered_ops``; rows 4, 5
    and 7 of the ``kernels`` record gain ``launches_model_parallel``.
+16. The dry-run, the roofline and the examples, after phase 15.  (a)
+   ``repro_torch.launch.dryrun.run_cell`` in a subprocess (its fake process
+   groups of 256 and 512 ranks never meet phases 14-15's): TinyLlama-1.1B
+   × train_4k, Granite-MoE-3B-A800M × decode_32k, GAT-Cora ×
+   full_graph_sm and BERT4Rec × serve_p99 on ``h100x32x8``, TinyLlama ×
+   train_4k also on ``h100x2x32x8``; each ``ok``, a dense LM's
+   ``useful_flop_frac`` ≤ 1.05; one ``dryrun`` line a cell.  (b) The
+   counter held against the card: phase 13's TinyLlama training step
+   (8 × 512) and one ``serve_prefill`` (8 × 2048) counted on the card and
+   on meta tensors (no mesh): the meta count less the card's is exactly
+   the FLOPs the meta run booked under the plain attention's scope (the
+   card's kernels are ``ctypes`` launches no dispatch mode sees); the
+   tracker's peak beside ``max_memory_allocated``.  (c) ``roofline_card``:
+   the step's roofline bound from (b)'s meta count (the plain attention,
+   as the dry-run counts it) and from the card's (the kernels left out,
+   so a bound the step cannot beat), phase 13's median step,
+   ``roofline_fraction``, ``mfu``, ``useful_flop_frac`` and the card-op
+   bound's share of the step, none above 1.05; the meta tracker's peak
+   beside phase 13's.  (d) The three examples through ``main(["--device",
+   "cuda", ...])``: ``torch_train_lm`` 60 steps (loss falls), resumed to
+   70, ``flash_attention_wgmma`` and ``flash_attention_bwd_wgmma`` 8
+   launches a step (rows 4 and 7 gain ``launches_examples``);
+   ``torch_serve_recsys`` (cross-entropy falls, top-10 ids in range, no
+   kernel launched); ``torch_quickstart`` (slab engines, no kernel
+   launched: each PageRank variant within ``PR_L1_TOL`` of ``base`` and 2
+   iterations, BFS depths equal to the flat path's, the cache model's
+   rates equal to a second host replay).
    Guards: the script refuses to run with ``REPRO_CHAOS`` armed, and
-   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b), 13, 14 and 15 must end with
-   no ``resilience.*`` counter moved (``resilience_quiet`` lines).
+   phases 4, 6, 8, 9, 10(b), 11, 12(a), 12(b), 13, 14, 15 and 16 must end
+   with no ``resilience.*`` counter moved (``resilience_quiet`` lines).
 
 Output: one JSON record per line; the last two lines are the kernels'
 record and ``{"ok": true, "device": {...}}``.  ``--log PATH`` appends the
@@ -5396,6 +5423,371 @@ def phase_model_parallel(seed: int, log, records: list) -> dict:
     return {"seconds": secs}
 
 
+# --------------------------------------------------------------------- #
+# phase 16: the dry-run, the roofline and the examples
+# --------------------------------------------------------------------- #
+#: (arch, shape, multi_pod) of the cells the dry-run traces here
+DRYRUN_CELLS = [("tinyllama-1.1b", "train_4k", False),
+                ("granite-moe-3b-a800m", "decode_32k", False),
+                ("gat-cora", "full_graph_sm", False),
+                ("bert4rec", "serve_p99", False),
+                ("tinyllama-1.1b", "train_4k", True)]
+#: a share (useful FLOP fraction, roofline fraction, MFU, the card-op
+#: bound's share of a measured step) above this means the count lost work
+SHARE_MAX = 1.05
+#: torch_train_lm's run on the card, then its resumed run's last step
+EXAMPLE_STEPS, EXAMPLE_RESUME_STEPS = 60, 70
+#: the prefill phase 16(b) counts: phase 6's serve_prefill shape
+PREFILL_SHAPE = (8, 2048)
+#: the quickstart's PageRank stops at tol 1e-8, where its L1 step is
+#: within 2x of fp32 rounding: a variant's iterations may differ from
+#: base's by this many (the reference's own variants stop 2 apart)
+QUICKSTART_ITERS = 2
+
+_DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+for arch, shape, multi in json.loads(sys.argv[1]):
+    rec = run_cell(arch, shape, multi, out_dir=sys.argv[2])
+    print("RECORD " + json.dumps(rec, default=str), flush=True)
+"""
+
+
+def phase_dryrun(log) -> list:
+    """(a) ``run_cell`` on the production meshes, in a subprocess."""
+    from repro_torch.configs import get_arch
+
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        r = subprocess.run(
+            [sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS),
+             out], env=env, cwd=str(ROOT), capture_output=True, text=True,
+            timeout=600)
+    log("--- dry-run ---\n" + r.stderr[-20000:])
+    if r.returncode != 0:
+        raise AssertionError(f"the dry-run exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    recs = [json.loads(ln[len("RECORD "):]) for ln in r.stdout.splitlines()
+            if ln.startswith("RECORD ")]
+    if len(recs) != len(DRYRUN_CELLS):
+        raise AssertionError(f"the dry-run gave {len(recs)} records for "
+                             f"{len(DRYRUN_CELLS)} cells")
+    for rec in recs:
+        if not rec["ok"]:
+            raise AssertionError(f"dry-run {rec['arch']} × {rec['shape']} "
+                                 f"[{rec['mesh']}]: {rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+        spec = get_arch(rec["arch"])
+        dense_lm = spec.family == "lm" and not spec.make_model_cfg().is_moe
+        emit({"phase": "dryrun", **{k: rec[k] for k in (
+            "arch", "shape", "mesh", "num_devices", "dominant",
+            "bound_seconds", "t_compute", "t_memory", "t_collective",
+            "t_collective_by_axis", "flops_per_device", "bytes_per_device",
+            "arg_bytes_per_device", "peak_bytes_per_device",
+            "collective_counts", "model_flops", "useful_flop_frac",
+            "roofline_fraction", "flops_by_scope", "trace_s")}})
+        if dense_lm and rec["useful_flop_frac"] > SHARE_MAX:
+            raise AssertionError(f"dry-run {rec['arch']} × {rec['shape']}: "
+                                 f"useful_flop_frac {rec['useful_flop_frac']}"
+                                 f" > {SHARE_MAX}: the count lost work")
+    return recs
+
+
+def check_meta_vs_card(what: str, meta, card):
+    """Every op but the plain attention counts alike on the card and on
+    meta: the meta count less the card's is exactly the FLOPs the meta run
+    booked under the ``attention`` scope, and the card booked none."""
+    attn = meta.flops_by_scope.get("attention", 0)
+    if card.flops_by_scope or attn <= 0 or meta.flops - card.flops != attn:
+        raise AssertionError(f"{what}: meta {meta.flops} − card "
+                             f"{card.flops} = {meta.flops - card.flops}, "
+                             f"want the attention scope's {attn} (card "
+                             f"scopes {card.flops_by_scope})")
+    return {"card_flops": card.flops, "meta_flops": meta.flops,
+            "attention_plain_flops": attn, "card_bytes": card.bytes,
+            "meta_bytes": meta.bytes}
+
+
+def phase_counter_vs_card(seed: int, lm: dict, log) -> dict:
+    """(b) phase 13's training step and phase 6's prefill shape, counted
+    on the card and on meta tensors; (c) the step's roofline."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.cells import META, shapes_only
+    from repro_torch.launch.hlo_analysis import (PEAK_FLOPS, roofline_terms,
+                                                 run_counted)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import adamw, cosine_schedule
+    from repro_torch.train.trainer import make_train_step
+
+    args = launch.build_parser().parse_args(TRAIN_ARGV + ["--seed",
+                                                          str(seed)])
+    cfg = get_arch(LM_ARCH).make_model_cfg()
+    opt = adamw(cosine_schedule(args.lr, 20, args.steps))
+    params, loss_fn, batches = launch._lm_setup(cfg, args)
+    batch = next(batches)
+    step = make_train_step(loss_fn, opt)
+    state = opt.init(params)
+    prompts = moe_prompts(*PREFILL_SHAPE, cfg.vocab, seed)
+
+    def prefill(p, t):
+        with torch.no_grad():
+            return tfm.serve_prefill(p, t, cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    card = run_counted(step, (params, state, batch))
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated()
+    launched = dict(cuda_build.launches)
+    if any(launched.get(n, 0) != cfg.n_layers for n in (
+            "flash_attention_wgmma", "flash_attention_bwd_wgmma")):
+        raise AssertionError(f"the counted step launched {launched}")
+    card_pf = run_counted(prefill, (params, prompts))
+    torch.cuda.synchronize()
+    tokens_shape = tuple(batch["tokens"].shape)
+    tokens_dtype = batch["tokens"].dtype
+    del params, state, batch, batches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mparams = shapes_only(tfm.init_params, cfg, torch.Generator(),
+                          device=META)
+    mstate = opt.init(mparams)
+    mbatch = {"tokens": torch.empty(tokens_shape, dtype=tokens_dtype,
+                                    device=META)}
+    meta = run_counted(step, (mparams, mstate, mbatch))
+    meta_pf = run_counted(prefill, (mparams, torch.empty(
+        PREFILL_SHAPE, dtype=prompts.dtype, device=META)))
+    meta_s = time.perf_counter() - t0
+    train_line = check_meta_vs_card("training step", meta, card)
+    prefill_line = check_meta_vs_card("serve_prefill", meta_pf, card_pf)
+    emit({"phase": "counter_vs_card", "arch": LM_ARCH,
+          "train": {"batch": tokens_shape, **train_line,
+                    "card_tracker_peak_gb": card.peak_bytes / 1e9,
+                    "card_max_memory_allocated_gb": card_peak / 1e9,
+                    "card_tracker_gap": card.peak_bytes / card_peak - 1},
+          "prefill": {"shape": PREFILL_SHAPE, **prefill_line},
+          "meta_seconds": meta_s})
+
+    # (c) the roofline of the step: meta's count (the plain attention),
+    # one card, against phase 13's measured median step
+    B, S = tokens_shape[0], tokens_shape[1] - 1
+    model_flops = 6.0 * cfg.active_param_count() * B * S
+    rl = roofline_terms(meta.flops, meta.bytes, meta.collectives(), 1,
+                        model_flops=model_flops)
+    # the card's own count leaves the kernels' work out, so its bound is
+    # one the measured step cannot beat
+    rl_card = roofline_terms(card.flops, card.bytes, card.collectives(), 1)
+    step_s = lm["step_ms_median_2_11"] / 1e3
+    shares = {"roofline_fraction": rl["roofline_fraction"],
+              "mfu": model_flops / (step_s * PEAK_FLOPS),
+              "useful_flop_frac": rl["useful_flop_frac"],
+              "card_ops_bound_share_of_step":
+                  rl_card["bound_seconds"] / step_s}
+    measured = lm["peak_memory_gb"]
+    line = {"phase": "roofline_card", "arch": LM_ARCH, "batch": B,
+            "seq": S, "model_flops": model_flops,
+            "counted_flops": meta.flops, "counted_bytes": meta.bytes,
+            "attention_plain_flops": meta.flops_by_scope["attention"],
+            "dominant": rl["dominant"], "bound_seconds": rl["bound_seconds"],
+            "t_compute": rl["t_compute"], "t_memory": rl["t_memory"],
+            "bound_over_step": rl["bound_seconds"] / step_s,
+            "card_ops_bound_seconds": rl_card["bound_seconds"],
+            "card_ops_dominant": rl_card["dominant"],
+            "step_seconds_phase13": step_s, **shares,
+            "predicted_peak_gb": meta.peak_bytes / 1e9,
+            "measured_peak_gb_phase13": measured,
+            "peak_gap": meta.peak_bytes / 1e9 / measured - 1}
+    emit(line)
+    bad = {k: v for k, v in shares.items() if v > SHARE_MAX}
+    if bad:
+        raise AssertionError(f"roofline shares above {SHARE_MAX}: {bad}")
+    return line
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_train_lm(log) -> dict:
+    """``torch_train_lm`` for 60 steps on the card, then resumed to 70."""
+    import io
+    import math
+
+    from repro_torch.kernels import cuda_build
+
+    mod = load_example("torch_train_lm")
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--device", "cuda", "--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        cuda_build.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            first = mod.main(argv + ["--steps", str(EXAMPLE_STEPS)])
+        first_launches = dict(cuda_build.launches)
+        first_s = time.perf_counter() - t0
+        cuda_build.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            again = mod.main(argv + ["--steps", str(EXAMPLE_RESUME_STEPS)])
+        again_launches = dict(cuda_build.launches)
+    log("--- torch_train_lm ---\n" + buf.getvalue())
+    hist = first["history"]
+    losses = [h["loss"] for h in hist + again["history"]]
+    if not all(math.isfinite(x) for x in losses) \
+            or not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"torch_train_lm losses {losses}")
+    if first["start"] != 0 or again["start"] != EXAMPLE_STEPS \
+            or again["history"][-1]["step"] != EXAMPLE_RESUME_STEPS - 1:
+        raise AssertionError(f"torch_train_lm started at {first['start']}, "
+                             f"resumed at {again['start']}")
+    per_step = {}
+    for launched, steps in ((first_launches, EXAMPLE_STEPS),
+                            (again_launches,
+                             EXAMPLE_RESUME_STEPS - EXAMPLE_STEPS)):
+        for n in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+            if launched.get(n, 0) != first["layers"] * steps:
+                raise AssertionError(f"torch_train_lm launched {launched} "
+                                     f"in {steps} steps; want {n} = "
+                                     f"{first['layers']} a step")
+            per_step[n] = launched[n] / steps
+    line = {"phase": "example_train_lm", "params": first["params"],
+            "layers": first["layers"], "steps": EXAMPLE_STEPS,
+            "resumed_from": again["start"],
+            "losses": {h["step"]: h["loss"] for h in
+                       hist + again["history"]},
+            "ms_a_step_logged": [1e3 * h["dt"] for h in hist],
+            "launches": first_launches, "launches_resumed": again_launches,
+            "launches_a_step": per_step, "seconds": first_s}
+    emit(line)
+    return line
+
+
+def example_serve_recsys(log) -> dict:
+    """``torch_serve_recsys`` on the card: no kernel on its path."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.kernels import cuda_build
+
+    mod = load_example("torch_serve_recsys")
+    buf = io.StringIO()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    log("--- torch_serve_recsys ---\n" + buf.getvalue())
+    losses = out["losses"]
+    ids = out["top_ids"]
+    if not np.mean(losses[-10:]) < np.mean(losses[:10]) - 0.3:
+        raise AssertionError(f"torch_serve_recsys: CE {losses[:3]} … "
+                             f"{losses[-3:]} did not fall")
+    if not ids.is_cuda or int(ids.min()) < 0 \
+            or int(ids.max()) >= out["vocab"] or ids.shape[1] != 10:
+        raise AssertionError(f"torch_serve_recsys ids {ids}")
+    if sum(cuda_build.launches.values()):
+        raise AssertionError(f"torch_serve_recsys launched "
+                             f"{dict(cuda_build.launches)}")
+    line = {"phase": "example_serve_recsys", "ce_first": losses[0],
+            "ce_last": losses[-1], "ms_per_batch": out["ms_per_batch"],
+            "seconds": secs}
+    emit(line)
+    return line
+
+
+def example_quickstart(log) -> dict:
+    """``torch_quickstart`` on the card (slab engines: no kernel)."""
+    import io
+
+    import torch
+
+    from repro_torch.core import DeviceGraph, bfs, rmat_graph
+    from repro_torch.core.cache_model import (CacheConfig,
+                                              simulate_pagerank_variant)
+    from repro_torch.kernels import cuda_build
+
+    mod = load_example("torch_quickstart")
+    buf = io.StringIO()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launched = dict(cuda_build.launches)
+    log("--- torch_quickstart ---\n" + buf.getvalue())
+    if sum(launched.values()):
+        raise AssertionError(f"torch_quickstart launched {launched}")
+    pr = out["pagerank"]
+    base = pr["base"]
+    l1 = {}
+    for variant, got in pr.items():
+        l1[variant] = float((got["rank"] - base["rank"]).abs().sum())
+        if l1[variant] > PR_L1_TOL \
+                or abs(got["iters"] - base["iters"]) > QUICKSTART_ITERS:
+            raise AssertionError(f"quickstart PR {variant}: {got['iters']} "
+                                 f"iterations (base {base['iters']}), L1 "
+                                 f"{l1[variant]}")
+    g = rmat_graph(scale=14, edge_factor=8, seed=7, weights=True)
+    flat, *_ = bfs(DeviceGraph.from_host(g, device="cuda"), None, 0)
+    if not torch.equal(flat, out["bfs"]["depth"]):
+        raise AssertionError("quickstart BFS: depths differ from the flat "
+                             "path's")
+    cfg = CacheConfig(capacity_bytes=16 * 1024)
+    for v, got in out["cache"].items():
+        r = simulate_pagerank_variant(g, v, cfg, block_size=2048)
+        if got != {k: r[k] for k in got}:
+            raise AssertionError(f"quickstart cache model {v}: {got} vs "
+                                 f"{r}")
+    line = {"phase": "example_quickstart",
+            "pagerank_iters": {v: r["iters"] for v, r in pr.items()},
+            "pagerank_l1_vs_base": l1, "bfs": {
+                k: out["bfs"][k] for k in ("levels", "push", "pull",
+                                           "reached")},
+            "cache": out["cache"], "seconds": secs}
+    emit(line)
+    return line
+
+
+def phase_dryrun_and_examples(seed: int, log, records: list,
+                              lm: dict) -> dict:
+    """Phase 16: (a) the dry-run, (b) the counter against the card, (c)
+    the roofline on the card, (d) the three examples.  Rows 4 and 7 of
+    the ``kernels`` record gain (d)'s ``torch_train_lm`` launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase_dryrun(log)
+    phase_counter_vs_card(seed, lm, log)
+    torch.cuda.empty_cache()
+    train = example_train_lm(log)
+    torch.cuda.empty_cache()
+    example_serve_recsys(log)
+    example_quickstart(log)
+    torch.cuda.empty_cache()
+    for row in records:
+        name = {"flash_attention": "flash_attention_wgmma",
+                "flash_attention_bwd": "flash_attention_bwd_wgmma"}.get(
+            row["name"])
+        if name is not None:
+            row["launches_examples"] = train["launches"].get(name, 0)
+            row["examples_steps"] = EXAMPLE_STEPS
+    secs = time.perf_counter() - t0
+    emit({"phase": "dryrun_and_examples_seconds", "seconds": secs})
+    return {"seconds": secs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", type=Path, default=None,
@@ -5505,7 +5897,7 @@ def main(argv=None) -> int:
     del granite, mixtral
     torch.cuda.empty_cache()
     quiet = resilience_total()
-    phase_training(SEED, log, bwd_row)
+    training = phase_training(SEED, log, bwd_row)
     check_quiet("phase 13", quiet)
     records.append(bwd_row)
     torch.cuda.empty_cache()
@@ -5516,6 +5908,10 @@ def main(argv=None) -> int:
     quiet = resilience_total()
     phase_model_parallel(SEED, log, records)
     check_quiet("phase 15", quiet)
+    torch.cuda.empty_cache()
+    quiet = resilience_total()
+    phase_dryrun_and_examples(SEED, log, records, training["lm"])
+    check_quiet("phase 16", quiet)
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.launch.hlo_analysis import scoped
 
 from .kernel import DTYPES, HEAD_DIMS, check_operand
 from .ops import pick_backend
@@ -217,8 +218,8 @@ def flash_decode(
     if pick_backend(q, backend) == "cuda":
         return flash_decode_cuda(q, k, v, scale=scale, kv_len=kv_len,
                                  split=split, softcap=softcap)
-    return flash_decode_ref(q, k, v, scale=scale, kv_len=kv_len,
-                            softcap=softcap)
+    return scoped("decode", flash_decode_ref, q, k, v, scale=scale,
+                  kv_len=kv_len, softcap=softcap)
 
 
 def flash_decode_ref(q, k, v, *, scale=None, kv_len=None, softcap=0.0):

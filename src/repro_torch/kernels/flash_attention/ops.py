@@ -6,7 +6,9 @@
   FMA kernel, which takes contiguous operands.  A CUDA tensor reaches its
   kernel or the call raises; nothing falls back.
 * ``"torch"`` — the plain version in :mod:`.ref`, the default for tensors
-  on the CPU, and what ``backend="torch"`` asks for on any device.
+  on the CPU (and on meta), and what ``backend="torch"`` asks for on any
+  device; a dispatch count (``launch.hlo_analysis``) books its ops, and
+  its backward's, under the scope ``"attention"``.
 
 Gradients.  On the card, when grad mode is on and q, k or v requires grad,
 the call goes through :class:`FlashAttention`, a
@@ -30,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.cuda_build import BACKENDS, pick_backend
+from repro_torch.launch.hlo_analysis import scoped
 
 from .kernel import (attention_bwd_route, attention_route,
                      flash_attention_bwd_cuda, flash_attention_bwd_wgmma_cuda,
@@ -108,9 +111,9 @@ def attention(
     ``q.dtype``."""
     if pick_backend(q, backend) == "torch":
         # contiguous operands: the einsums' rounding must not follow strides
-        return attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
-                             scale=scale, causal=causal, window=window,
-                             softcap=softcap)
+        return scoped("attention", attention_ref, q.contiguous(),
+                      k.contiguous(), v.contiguous(), scale=scale,
+                      causal=causal, window=window, softcap=softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, scale, causal, window, softcap)
     return _forward_cuda(q, k, v, scale, causal, window, softcap)

@@ -535,10 +535,22 @@ def gnn_forward(params, batch, cfg: GNNConfig, bg=None) -> Tensor:
     return _FWD[cfg.arch](params, batch, cfg, bg)
 
 
+def _summed(x):
+    """``x`` with the summands of a DTensor's ``Partial`` placements summed
+    (made ``Replicate``; its shards kept).  The loss sums them anyway
+    (``logsumexp`` is not linear); done first, the gather of the gold logit
+    never meets DTensor's masked-partial reduce, which takes 2-D tensors
+    only."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
 def gnn_loss_fn(params, batch: GraphBatch, cfg: GNNConfig, bg=None):
     """→ (loss, metrics): MSE for DimeNet's regression head
     (``n_classes == 1``), else the (node-masked) mean CE with accuracy."""
-    out = gnn_forward(params, batch, cfg, bg)
+    out = _summed(gnn_forward(params, batch, cfg, bg))
     if cfg.arch == "dimenet" and cfg.n_classes == 1:
         # regression (molecular property)
         target = batch.labels.float()

@@ -105,11 +105,14 @@ def batch_on_mesh(batch, mesh):
     """This rank's block of a batch (each leaf's leading dimension; the
     blocks of the data ranks in rank order, equal over ``model``) as
     DTensors of the global batch: split over the batch axes by the
-    ``batch`` rule, whole over ``model``."""
+    ``batch`` rule, whole over ``model``.  A leaf that is a DTensor already
+    (a batch the caller placed itself, as the dry-run's cells do) passes
+    as it is."""
     sizes = mesh_axis_sizes(mesh)
 
     def wrap(x):
-        if not isinstance(x, torch.Tensor) or x.ndim == 0:
+        if not isinstance(x, torch.Tensor) or x.ndim == 0 \
+                or isinstance(x, DTensor):
             return x
         spec = ("batch",) + (None,) * (x.ndim - 1)
         n = 1

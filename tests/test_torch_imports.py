@@ -47,7 +47,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.configs.graphsage_reddit\n"
         "import repro_torch.dist, repro_torch.dist.sharding\n"
         "import repro_torch.dist.collectives, repro_torch.dist.elastic\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.cells\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
@@ -93,7 +94,39 @@ def test_card_scripts_import_neither_jax_nor_repro():
              *sorted((ROOT / "benchmarks").glob("torch_*.py")),
              *sorted((ROOT / "examples").glob("torch_*.py"))]
     assert ROOT / "benchmarks" / "torch_paper_figs.py" in files
+    for name in ("benchmarks/torch_roofline.py", "benchmarks/torch_report.py",
+                 "examples/torch_quickstart.py",
+                 "examples/torch_serve_recsys.py",
+                 "examples/torch_train_lm.py"):
+        assert ROOT / name in files
     assert _offenders(files, ROOT) == []
+
+
+def test_new_scripts_load_without_jax():
+    """The roofline and report benchmarks and the three examples load (and
+    import what they run) in a process that then holds neither ``jax`` nor
+    ``repro``; importing the dry-run opens no process group."""
+    code = (
+        "import importlib.util, sys\n"
+        "import torch.distributed as dist\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('m', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import repro_torch.launch.dryrun\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD:' + ','.join(bad), 'GROUP:', dist.is_initialized())\n"
+    )
+    paths = [str(ROOT / p) for p in (
+        "benchmarks/torch_roofline.py", "benchmarks/torch_report.py",
+        "examples/torch_quickstart.py", "examples/torch_serve_recsys.py",
+        "examples/torch_train_lm.py")]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code, *paths], env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "BAD: GROUP: False", \
+        out.stdout
 
 
 def test_tune_cli_help_runs_without_jax():
