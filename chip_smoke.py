@@ -1106,41 +1106,20 @@ def time_balanced_bins(main: dict, contrib):
 TRAVERSAL_SOURCES = 8
 
 
-class LevelClock:
-    """Wall time of each traversal level by Beamer direction, with no sync
-    added: a level lies between two frontier reads of
-    ``repro_torch.core.traversal``, each of which waits for the card."""
+def level_ms() -> dict:
+    """Device ms of each traversal level traced since the last call, by
+    Beamer direction: the markers of ``repro_torch``'s ``traversal.level``
+    spans (the level's frontier read, its engine and its advance); clears
+    the span buffer."""
+    from repro_torch.obs import trace
 
-    def __init__(self):
-        from repro_torch.core import traversal
-
-        self._cls = traversal._Frontier
-        self._orig = self._cls.direction
-        self.stamps = []
-
-    def __enter__(self):
-        orig, stamps = self._orig, self.stamps
-
-        def direction(state, algo):
-            use_pull = orig(state, algo)
-            stamps.append((time.perf_counter(), use_pull))
-            return use_pull
-
-        self._cls.direction = direction
-        return self
-
-    def __exit__(self, *exc):
-        self._cls.direction = self._orig
-
-    def take(self) -> dict:
-        """ms of the push and the pull levels since the last take."""
-        out = {"push_level_ms": [], "pull_level_ms": []}
-        for (t0, use_pull), (t1, _) in zip(self.stamps, self.stamps[1:]):
-            if use_pull is not None:
-                key = "pull_level_ms" if use_pull else "push_level_ms"
-                out[key].append(1e3 * (t1 - t0))
-        self.stamps.clear()
-        return out
+    out = {"push_level_ms": [], "pull_level_ms": []}
+    for e in trace.events():
+        if e["name"] == "traversal.level" and "device_ms" in e \
+                and e["attrs"]["direction"] in ("push", "pull"):
+            out[f"{e['attrs']['direction']}_level_ms"].append(e["device_ms"])
+    trace.clear()
+    return out
 
 
 def transpose_on_card(dg):
@@ -1260,7 +1239,6 @@ def phase_traversal(main: dict, seed: int, log) -> dict:
     sources = search_keys(dg.out_degree, TRAVERSAL_SOURCES, seed)
     launches = {}
     lines = []
-    clock = LevelClock()
 
     def record(algo, engine, runs, edges, **extra):
         secs = [r["seconds"] for r in runs]
@@ -1283,7 +1261,10 @@ def phase_traversal(main: dict, seed: int, log) -> dict:
                                  f"{got.get(name, 0)} times, fewer than "
                                  f"the {want} its runs need")
 
-    with clock:
+    from repro_torch.obs import trace
+
+    trace.clear()
+    with trace.enable():
         # ---- BFS: 8 search keys, fused and flat; one slab ---- #
         results = {}
         for engine, bg_, kw in (("fused", bpu, {"impl": "fused"}),
@@ -1295,7 +1276,7 @@ def phase_traversal(main: dict, seed: int, log) -> dict:
             for s in sources:
                 (depth, lv, n_push, n_pull), secs = timed_run(
                     lambda: bfs(dgu, bg_, s, **kw))
-                for k, v in clock.take().items():
+                for k, v in level_ms().items():
                     levels[k] += v
                 results[(engine, s)] = (depth, lv, n_push, n_pull)
                 runs.append({"source": s, "seconds": secs, "levels": lv,
@@ -1310,7 +1291,7 @@ def phase_traversal(main: dict, seed: int, log) -> dict:
             lambda: bfs(dgu, bpu, s0, impl="slab"))
         record("bfs", "slab", [{"source": s0, "seconds": secs, "levels": lv,
                                 "n_push": n_push, "n_pull": n_pull}],
-               [reached_edges(dgu, depth < INF_DEPTH)], **clock.take())
+               [reached_edges(dgu, depth < INF_DEPTH)], **level_ms())
         results[("slab", s0)] = (depth, lv, n_push, n_pull)
         for (engine, s), (depth, lv, n_push, n_pull) in results.items():
             flat = results[("flat", s)]
@@ -1336,7 +1317,7 @@ def phase_traversal(main: dict, seed: int, log) -> dict:
             cuda_build.reset_launches()
             (scores, depth, sigma), secs = timed_run(
                 lambda: bc(dgu, bg_, s0, **kw))
-            levels = clock.take()
+            levels = level_ms()
             n_levels = len(levels["push_level_ms"]) + len(
                 levels["pull_level_ms"])
             if engine == "fused":  # σ through fused_pull at every level
@@ -2745,7 +2726,7 @@ def phase_tuner(seed: int, log) -> dict:
     from repro_torch.core import bfs, pagerank, spmv
     from repro_torch.core.partition import DEFAULT_BIN_THRESHOLDS
     from repro_torch.kernels import cuda_build
-    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.metrics import registry
     from repro_torch.tune import (Candidate, SearchSpace, analytic,
                                   device_key, runner, tune)
     from repro_torch.tune import db as tune_db
@@ -2754,6 +2735,9 @@ def phase_tuner(seed: int, log) -> dict:
     from repro_torch.tune.suite import SUITE
 
     t_phase = time.perf_counter()
+    #: the timed trials' seconds (the tuner's counter: tracing stays off,
+    #: so the trials time the engines alone)
+    trial_seconds = registry.counter("tune.trial_seconds")
     # the small budget's space at the default bin thresholds (4, 32) gives
     # these graphs no dense block; the full budget's "auto" thresholds do,
     # so the balanced trials reach tocab_spmm
@@ -2781,13 +2765,12 @@ def phase_tuner(seed: int, log) -> dict:
                 for c in space.candidates(wl):
                     analytic.predicted_cost(g, c)
             replay = time.perf_counter() - t0
-            n_ev = len(obs_trace.events())
+            trial_s = trial_seconds.value()
             t0 = time.perf_counter()
             summary = tune({name: g}, workloads=WORKLOADS, budget="small",
                            space=space, cfg=CFG, device="cuda")
             sweep = time.perf_counter() - t0
-            trial_s = sum(e["dur_s"] for e in obs_trace.events()[n_ev:]
-                          if e["name"] == "tune.trial")
+            trial_s = trial_seconds.value() - trial_s
             entries += summary["entries"]
             per_graph[name] = {
                 "n": g.n, "m": g.m, "replay_seconds": replay,

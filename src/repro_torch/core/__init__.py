@@ -49,7 +49,6 @@ from .tocab import (  # noqa: F401
     cb_pull,
     reduce_partials,
     segment_reduce,
-    timed,
     tocab_edge_reduce,
     tocab_gather_src,
     tocab_pull,

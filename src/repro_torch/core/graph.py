@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
+
 __all__ = [
     "Graph",
     "DeviceGraph",
@@ -215,23 +217,26 @@ class DeviceGraph:
     @classmethod
     def from_host(cls, g: Graph, device="cuda") -> "DeviceGraph":
         """Ship ``g`` to ``device`` (the card unless the caller names
-        another).  The COO source column is expanded on the device."""
-        rowptr = torch.from_numpy(np.ascontiguousarray(g.rowptr, np.int64))
-        rowptr = rowptr.to(device)
-        out_degree = (rowptr[1:] - rowptr[:-1]).to(torch.int32)
-        dst = torch.from_numpy(np.ascontiguousarray(g.colidx, np.int32))
-        dst = dst.to(device)
-        src = torch.repeat_interleave(
-            torch.arange(g.n, dtype=torch.int32, device=dst.device),
-            out_degree.long(), output_size=g.m)
-        in_degree = torch.bincount(dst, minlength=g.n).to(torch.int32)
-        vals = None
-        if g.vals is not None:
-            vals = torch.from_numpy(
-                np.ascontiguousarray(g.vals, np.float32)).to(device)
-        return cls(n=g.n, src=src, dst=dst, rowptr=rowptr.to(torch.int32),
-                   out_degree=out_degree, in_degree=in_degree, vals=vals,
-                   fingerprint=graph_fingerprint(g))
+        another).  The COO source column is expanded on the device.
+        Traced, a ``graph.from_host`` span."""
+        with span("graph.from_host", device=device, n=g.n, m=g.m):
+            rowptr = torch.from_numpy(
+                np.ascontiguousarray(g.rowptr, np.int64)).to(device)
+            out_degree = (rowptr[1:] - rowptr[:-1]).to(torch.int32)
+            dst = torch.from_numpy(
+                np.ascontiguousarray(g.colidx, np.int32)).to(device)
+            src = torch.repeat_interleave(
+                torch.arange(g.n, dtype=torch.int32, device=dst.device),
+                out_degree.long(), output_size=g.m)
+            in_degree = torch.bincount(dst, minlength=g.n).to(torch.int32)
+            vals = None
+            if g.vals is not None:
+                vals = torch.from_numpy(
+                    np.ascontiguousarray(g.vals, np.float32)).to(device)
+            return cls(n=g.n, src=src, dst=dst,
+                       rowptr=rowptr.to(torch.int32), out_degree=out_degree,
+                       in_degree=in_degree, vals=vals,
+                       fingerprint=graph_fingerprint(g))
 
 
 def device_graph_from_arrays(arrays: dict, meta: dict,

@@ -9,7 +9,12 @@ Variants (names follow the paper's evaluation bars):
 * ``gc-push``   — GraphCage TOCAB push (Alg. 5)
 
 The iteration runs on the device that holds the graph; the loop and its L1
-stop test run on the host (one scalar read per iteration).
+stop test run on the host (one scalar read per iteration).  Traced
+(:mod:`repro_torch.obs.trace`), a solve is a ``pagerank.solve`` span and
+each iteration a ``pagerank.iteration`` span holding the engine's span and
+then ``pagerank.stop_test``, the read of the L1 change alone: its entry
+marker falls on the card when the iteration's work is done, so from there
+to the next iteration's entry marker the card waits on the host.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import span
 from repro_torch.resilience import degrade
 from .balance import UNWEIGHTED as _unweighted
 from .graph import DeviceGraph
@@ -118,13 +124,19 @@ def pagerank(
     if allow and variant in ("gc-pull", "gc-push"):
         site = "tocab_pull" if variant == "gc-pull" else "tocab_push"
         impl = degrade.apply_verdict(bg.fingerprint, site, impl)
-    n = dg.n
-    rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dg.device)
-    delta, it = math.inf, 0
-    while delta > tol and it < max_iters:
-        new_rank = pagerank_iteration(
-            variant, dg, bg, rank, dg.out_degree, damping, handle_dangling,
-            schedule, impl, allow)
-        delta = float((new_rank - rank).abs().sum())
-        rank, it = new_rank, it + 1
+    n, dev = dg.n, dg.device
+    with span("pagerank.solve", variant=variant, schedule=schedule,
+              impl=impl, n=n, m=dg.m) as solve:
+        rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+        delta, it = math.inf, 0
+        while delta > tol and it < max_iters:
+            with span("pagerank.iteration", device=dev, it=it):
+                new_rank = pagerank_iteration(
+                    variant, dg, bg, rank, dg.out_degree, damping,
+                    handle_dangling, schedule, impl, allow)
+                l1 = (new_rank - rank).abs().sum()
+                with span("pagerank.stop_test", device=dev) as st:
+                    delta = st.wait(float, l1)
+            rank, it = new_rank, it + 1
+        solve.set(iterations=it)
     return rank, it

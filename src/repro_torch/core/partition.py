@@ -24,6 +24,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
 from .graph import Graph, GraphValidationError, graph_fingerprint, \
     validate_graph
 
@@ -160,7 +161,14 @@ def build_blocked(
 
     The result equals ``repro.core.build_blocked`` field for field: the
     reference's ``np.lexsort((compact, block))`` is one stable sort of the
-    key ``block·n + compact``, and its ``np.*.at`` passes are scatters."""
+    key ``block·n + compact``, and its ``np.*.at`` passes are scatters.
+
+    Traced (:mod:`repro_torch.obs.trace`), the build is a
+    ``partition.build_blocked`` span whose children end at the build's
+    own host reads: ``partition.upload``, ``.sort``, ``.compaction``,
+    ``.slab_fill`` (no read: its device work is waited for in
+    ``.schedule``, and its device markers time it), ``.schedule`` and
+    ``.fingerprint``."""
     if direction not in ("pull", "push"):
         raise ValueError(f"unknown direction {direction!r}")
     if validate is not None:
@@ -168,109 +176,135 @@ def build_blocked(
     if block_size is None:
         block_size = choose_block_size(g.n, fast_mem_bytes=fast_mem_bytes)
     n, m = g.n, g.m
-    i64 = dict(dtype=torch.int64)
-    rowptr = torch.from_numpy(np.ascontiguousarray(g.rowptr, np.int64))
-    rowptr = rowptr.to(device)
-    dev = rowptr.device
-    src = torch.repeat_interleave(
-        torch.arange(n, device=dev, **i64), rowptr[1:] - rowptr[:-1],
-        output_size=m)
-    del rowptr
-    dst = torch.from_numpy(np.ascontiguousarray(g.colidx, np.int32))
-    dst = dst.to(dev).long()
-    if direction == "pull":
-        window_g, compact_g = src, dst  # gather from src window, compact dst
-    else:
-        window_g, compact_g = dst, src  # scatter to dst window, compact src
-    del src, dst
+    with span("partition.build_blocked", device=device,
+              direction=direction, n=n, m=m):
+        with span("partition.upload", device=device):
+            i64 = dict(dtype=torch.int64)
+            rowptr = torch.from_numpy(
+                np.ascontiguousarray(g.rowptr, np.int64)).to(device)
+            dev = rowptr.device
+            src = torch.repeat_interleave(
+                torch.arange(n, device=dev, **i64),
+                rowptr[1:] - rowptr[:-1], output_size=m)
+            del rowptr
+            dst = torch.from_numpy(
+                np.ascontiguousarray(g.colidx, np.int32)).to(dev).long()
+            # pull: gather from the src window, compact dst; push: scatter
+            # to the dst window, compact src
+            if direction == "pull":
+                window_g, compact_g = src, dst
+            else:
+                window_g, compact_g = dst, src
+            del src, dst
 
-    num_blocks = max(1, -(-n // block_size))
-    # Distinct window-side vertices per block — the reduction-row count of
-    # the push direction.  A window vertex lies in exactly one block, so
-    # this counts the vertices of each block with any window-side edge.
-    touched = torch.zeros(num_blocks * block_size, dtype=torch.int32,
-                          device=dev)
-    touched[window_g] = 1
-    n_window = touched.view(num_blocks, block_size).sum(1, dtype=torch.int32)
-    del touched
+        with span("partition.sort", device=dev):
+            num_blocks = max(1, -(-n // block_size))
+            # Distinct window-side vertices per block — the reduction-row
+            # count of the push direction.  A window vertex lies in exactly
+            # one block, so this counts the vertices of each block with any
+            # window-side edge.
+            touched = torch.zeros(num_blocks * block_size,
+                                  dtype=torch.int32, device=dev)
+            touched[window_g] = 1
+            n_window = touched.view(num_blocks, block_size).sum(
+                1, dtype=torch.int32)
+            del touched
 
-    # Sort edges by (block, compact-global): blocked CSR with the compacted
-    # side contiguous (local-ID assignment becomes a run-length pass, and
-    # the scatter side is sorted for the kernels).  Stable, like lexsort.
-    blk = torch.div(window_g, block_size, rounding_mode="floor")
-    order = torch.sort(blk * n + compact_g, stable=True).indices
-    blk, window_g, compact_g = blk[order], window_g[order], compact_g[order]
+            # Sort edges by (block, compact-global): blocked CSR with the
+            # compacted side contiguous (local-ID assignment becomes a
+            # run-length pass, and the scatter side is sorted for the
+            # kernels).  Stable, like lexsort.
+            blk = torch.div(window_g, block_size, rounding_mode="floor")
+            order = torch.sort(blk * n + compact_g, stable=True).indices
+            blk, window_g = blk[order], window_g[order]
+            compact_g = compact_g[order]
 
-    edge_counts = torch.bincount(blk, minlength=num_blocks)
-    max_count = int(edge_counts.max()) if m else 0
-    edge_budget = _roundup(max(max_count, 1), pad_edges_to)
+            edge_counts = torch.bincount(blk, minlength=num_blocks)
+            max_count = int(edge_counts.max()) if m else 0
+            edge_budget = _roundup(max(max_count, 1), pad_edges_to)
 
-    # Local-ID compaction: within each block, unique compact-side vertices in
-    # sorted order get ids 0..n_local-1 (paper Fig. 4).
-    new_run = torch.ones(m, dtype=torch.bool, device=dev)
-    if m > 1:
-        new_run[1:] = (blk[1:] != blk[:-1]) | (compact_g[1:] != compact_g[:-1])
-    run_id = torch.cumsum(new_run, 0) - 1  # global run index
-    first_edge = torch.cumsum(edge_counts, 0) - edge_counts
-    has_edges = edge_counts > 0
-    block_start_run = torch.zeros(num_blocks, device=dev, **i64)
-    block_start_run[has_edges] = run_id[first_edge[has_edges]]
-    local_id = run_id - torch.repeat_interleave(
-        block_start_run, edge_counts, output_size=m)
-    del run_id
-    n_local = torch.zeros(num_blocks, device=dev, **i64)
-    if m:
-        n_local.scatter_reduce_(0, blk, local_id + 1, reduce="amax")
-    local_budget = _roundup(max(int(n_local.max()), 1), pad_locals_to)
+        with span("partition.compaction", device=dev):
+            # Local-ID compaction: within each block, unique compact-side
+            # vertices in sorted order get ids 0..n_local-1 (paper Fig. 4).
+            new_run = torch.ones(m, dtype=torch.bool, device=dev)
+            if m > 1:
+                new_run[1:] = ((blk[1:] != blk[:-1])
+                               | (compact_g[1:] != compact_g[:-1]))
+            run_id = torch.cumsum(new_run, 0) - 1  # global run index
+            first_edge = torch.cumsum(edge_counts, 0) - edge_counts
+            has_edges = edge_counts > 0
+            block_start_run = torch.zeros(num_blocks, device=dev, **i64)
+            block_start_run[has_edges] = run_id[first_edge[has_edges]]
+            local_id = run_id - torch.repeat_interleave(
+                block_start_run, edge_counts, output_size=m)
+            del run_id
+            n_local = torch.zeros(num_blocks, device=dev, **i64)
+            if m:
+                n_local.scatter_reduce_(0, blk, local_id + 1, reduce="amax")
+            local_budget = _roundup(max(int(n_local.max()), 1),
+                                    pad_locals_to)
 
-    # Padded slabs are flattened and indexed with int32 downstream (the
-    # phase-3 segment reduce, the kernels' id maps) — overflow here would
-    # wrap silently at runtime, so it is always a hard error.
-    int32_max = np.iinfo(np.int32).max
-    for what, size in (("edge", num_blocks * edge_budget),
-                       ("partial", num_blocks * local_budget)):
-        if size > int32_max:
-            raise GraphValidationError(
-                "budget_overflow",
-                f"flat {what} slab has {size} entries "
-                f"(num_blocks={num_blocks}), exceeding int32 addressing")
+        # Padded slabs are flattened and indexed with int32 downstream (the
+        # phase-3 segment reduce, the kernels' id maps) — overflow here would
+        # wrap silently at runtime, so it is always a hard error.
+        int32_max = np.iinfo(np.int32).max
+        for what, size in (("edge", num_blocks * edge_budget),
+                           ("partial", num_blocks * local_budget)):
+            if size > int32_max:
+                raise GraphValidationError(
+                    "budget_overflow",
+                    f"flat {what} slab has {size} entries "
+                    f"(num_blocks={num_blocks}), exceeding int32 addressing")
 
-    # --- fill padded slabs ---
-    shape_e = (num_blocks, edge_budget)
-    slot = torch.arange(m, device=dev, **i64) - torch.repeat_interleave(
-        first_edge, edge_counts, output_size=m)
-    flat = blk * edge_budget + slot
-    del slot
-    window_idx = torch.zeros(shape_e, dtype=torch.int32, device=dev)
-    window_idx.view(-1)[flat] = (window_g - blk * block_size).to(torch.int32)
-    del window_g
-    compact_idx = torch.zeros(shape_e, dtype=torch.int32, device=dev)
-    compact_idx.view(-1)[flat] = local_id.to(torch.int32)
-    edge_mask = torch.zeros(shape_e, dtype=torch.bool, device=dev)
-    edge_mask.view(-1)[flat] = True
-    edge_perm = torch.full(shape_e, m, dtype=torch.int32, device=dev)
-    edge_perm.view(-1)[flat] = order.to(torch.int32)  # original edge index
-    edge_vals = None
-    if g.vals is not None:
-        vals = torch.from_numpy(np.ascontiguousarray(g.vals, np.float32))
-        edge_vals = torch.zeros(shape_e, dtype=torch.float32, device=dev)
-        edge_vals.view(-1)[flat] = vals.to(dev)[order]
-        del vals
-    del flat, order
-    id_map = torch.full((num_blocks, local_budget), n, dtype=torch.int32,
-                        device=dev)
-    id_map.view(-1)[blk[new_run] * local_budget + local_id[new_run]] = \
-        compact_g[new_run].to(torch.int32)
-    del blk, local_id, compact_g, new_run
+        with span("partition.slab_fill", device=dev):
+            # --- fill padded slabs ---
+            shape_e = (num_blocks, edge_budget)
+            slot = torch.arange(m, device=dev, **i64) - \
+                torch.repeat_interleave(first_edge, edge_counts,
+                                        output_size=m)
+            flat = blk * edge_budget + slot
+            del slot
+            window_idx = torch.zeros(shape_e, dtype=torch.int32, device=dev)
+            window_idx.view(-1)[flat] = (
+                window_g - blk * block_size).to(torch.int32)
+            del window_g
+            compact_idx = torch.zeros(shape_e, dtype=torch.int32, device=dev)
+            compact_idx.view(-1)[flat] = local_id.to(torch.int32)
+            edge_mask = torch.zeros(shape_e, dtype=torch.bool, device=dev)
+            edge_mask.view(-1)[flat] = True
+            edge_perm = torch.full(shape_e, m, dtype=torch.int32, device=dev)
+            # the original edge index
+            edge_perm.view(-1)[flat] = order.to(torch.int32)
+            edge_vals = None
+            if g.vals is not None:
+                vals = torch.from_numpy(
+                    np.ascontiguousarray(g.vals, np.float32))
+                edge_vals = torch.zeros(shape_e, dtype=torch.float32,
+                                        device=dev)
+                edge_vals.view(-1)[flat] = vals.to(dev)[order]
+                del vals
+            del flat, order
+            id_map = torch.full((num_blocks, local_budget), n,
+                                dtype=torch.int32, device=dev)
+            id_map.view(-1)[blk[new_run] * local_budget
+                            + local_id[new_run]] = \
+                compact_g[new_run].to(torch.int32)
+            del blk, local_id, compact_g, new_run
 
-    schedule = None
-    if classify:
-        from .balance import make_schedule
+        with span("partition.schedule", device=dev):
+            schedule = None
+            if classify:
+                from .balance import make_schedule
 
-        counts_h, n_local_h = _as_numpy(edge_counts), _as_numpy(n_local)
-        rows = n_local_h if direction == "pull" else _as_numpy(n_window)
-        schedule = make_schedule(counts_h, rows, thresholds=bin_thresholds,
-                                 n_compact_rows=n_local_h)
+                counts_h = _as_numpy(edge_counts)
+                n_local_h = _as_numpy(n_local)
+                rows = (n_local_h if direction == "pull"
+                        else _as_numpy(n_window))
+                schedule = make_schedule(counts_h, rows,
+                                         thresholds=bin_thresholds,
+                                         n_compact_rows=n_local_h)
+        with span("partition.fingerprint"):
+            fingerprint = graph_fingerprint(g)
 
     return BlockedGraph(
         n=n,
@@ -290,7 +324,7 @@ def build_blocked(
         edge_vals=edge_vals,
         n_window=n_window,
         schedule=schedule,
-        fingerprint=graph_fingerprint(g),
+        fingerprint=fingerprint,
     )
 
 

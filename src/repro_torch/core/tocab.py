@@ -23,13 +23,12 @@ off, as its dropped segment ``n`` does.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.obs.metrics import registry as _obs
-from repro_torch.obs.trace import synchronize
+from repro_torch.obs.trace import span
 from repro_torch.resilience import chaos, degrade
 from .graph import DeviceGraph
 from .partition import REDUCE_IDENTITY, BlockedGraph
@@ -48,7 +47,6 @@ __all__ = [
     "blocked_edge_values",
     "tocab_gather_src",
     "reduce_partials",
-    "timed",
 ]
 
 _SCATTER_REDUCE = {"min": "amin", "max": "amax"}
@@ -56,7 +54,12 @@ _SCATTER_REDUCE = {"min": "amin", "max": "amax"}
 
 def _record_engine(engine: str, direction: str, blocks: int, edges: int):
     """Per-call telemetry of static facts (the reference records the same
-    series once per trace)."""
+    series once per trace), and the edges the call reads
+    (``tocab.edges_scanned``: every edge of the graph or layout, whatever
+    the values hold)."""
+    _obs.counter(
+        "tocab.edges_scanned", "edges an engine call reads"
+    ).inc(edges, engine=engine, direction=direction)
     _obs.counter(
         "tocab.engine_traces", "engine (re)traces by name/direction"
     ).inc(engine=engine, direction=direction)
@@ -64,24 +67,6 @@ def _record_engine(engine: str, direction: str, blocks: int, edges: int):
         blocks, engine=engine)
     _obs.gauge("tocab.edges", "edges per engine trace").set(
         edges, engine=engine)
-
-
-def timed(engine_fn, graph, *args, engine: str = None, **kw):
-    """Synchronously run one engine call, recording wall time and edges/s.
-
-    ``graph`` is the DeviceGraph / BlockedGraph first argument; edges come
-    from its ``m``.  The engine may return a tensor or tuples / dicts of
-    them (e.g. ``(rank, iters)``); the clock stops after the card has
-    finished every one.  Returns the result."""
-    name = engine or getattr(engine_fn, "__name__", "engine")
-    t0 = time.perf_counter()
-    out = synchronize(engine_fn(graph, *args, **kw))
-    dt = time.perf_counter() - t0
-    _obs.histogram("tocab.call_seconds", "engine wall time").observe(
-        dt, engine=name)
-    _obs.gauge("tocab.edges_per_s", "engine throughput").set(
-        graph.m / max(dt, 1e-12), engine=name)
-    return out
 
 
 def _check_reduce(reduce: str):
@@ -412,8 +397,10 @@ def tocab_pull(
             balanced_pull(bg, values, reduce, combine, dense_impl=dense_impl,
                           allow_fallback=allow), reduce, epilogue)
 
-    return _ladder_dispatch("tocab_pull", bg, ri, allow, _fused, _slab,
-                            lambda: _uniform("tocab_pull_reference"))
+    with span("tocab.pull", device=values.device, engine="tocab_pull",
+              impl=ri, schedule=rs, blocks=bg.num_blocks):
+        return _ladder_dispatch("tocab_pull", bg, ri, allow, _fused, _slab,
+                                lambda: _uniform("tocab_pull_reference"))
 
 
 def _push_messages(values, id_map, compact_idx, edge_vals, edge_mask,
@@ -492,8 +479,10 @@ def tocab_push(
         return _slab_epilogue(balanced_push(bg, values, reduce, combine),
                               reduce, epilogue)
 
-    return _ladder_dispatch("tocab_push", bg, ri, allow, _fused, _slab,
-                            lambda: _uniform("tocab_push_reference"))
+    with span("tocab.push", device=values.device, engine="tocab_push",
+              impl=ri, schedule=rs, blocks=bg.num_blocks):
+        return _ladder_dispatch("tocab_push", bg, ri, allow, _fused, _slab,
+                                lambda: _uniform("tocab_push_reference"))
 
 
 # ====================================================================== #

@@ -18,7 +18,17 @@ its out-edge count together, SSSP and CC their ``changed`` flag.  The loop
 records its telemetry (``traversal.frontier_size``,
 ``traversal.frontier_edges``, ``traversal.iterations``) from those values,
 so recording adds no synchronisation.  ``m_f`` is counted exactly, in
-int64 (the reference sums it in fp32, which rounds past 2²⁴ edges).
+int64 (the reference sums it in fp32, which rounds past 2²⁴ edges), and
+``traversal.frontier_edges_total`` sums it by direction, so that over
+``tocab.edges_scanned`` of ``baseline_push`` it says how much of the push
+levels' scan had a frontier edge.
+
+Traced (:mod:`repro_torch.obs.trace`), a traversal is a
+``traversal.<algo>`` span and each level a ``traversal.level`` span with
+device markers: ``level``, and ``direction`` (``push``, ``pull``, or None
+for the last read, which found the frontier empty), ``frontier_size`` and
+``frontier_edges`` set after the read, which is a
+``traversal.frontier_read`` span of its own.
 
 Each entry point runs on the device of the graph it is given.  Semantics
 kept from the reference: BFS and BC pass ``combine=None``, so on a layout
@@ -33,6 +43,7 @@ from typing import Optional
 import torch
 
 from repro_torch.obs.metrics import registry as _obs
+from repro_torch.obs.trace import span
 from . import tocab
 from .balance import ADD_EDGE, UNWEIGHTED
 from .graph import DeviceGraph
@@ -74,6 +85,10 @@ def _source_index(source, n: int) -> int:
 
 
 def _record_frontier(algo: str, size: int, edges: int, use_pull: bool):
+    direction = "pull" if use_pull else "push"
+    _obs.counter(
+        "traversal.frontier_edges_total", "frontier out-edges by direction"
+    ).inc(edges, algo=algo, direction=direction)
     _obs.histogram(
         "traversal.frontier_size", "active vertices per iteration"
     ).observe(float(size), algo=algo)
@@ -82,7 +97,7 @@ def _record_frontier(algo: str, size: int, edges: int, use_pull: bool):
     ).observe(float(edges), algo=algo)
     _obs.counter(
         "traversal.iterations", "iterations by Beamer direction decision"
-    ).inc(algo=algo, direction="pull" if use_pull else "push")
+    ).inc(algo=algo, direction=direction)
 
 
 def _record_iteration(algo: str):
@@ -122,12 +137,22 @@ class _Frontier:
         self.frontier[src] = True
         self.level = self.n_push = self.n_pull = 0
 
-    def direction(self, algo: str) -> Optional[bool]:
-        """Whether the next level pulls; None when the frontier is empty."""
-        size, edges = _frontier_stats(self.dg, self.frontier)
+    def level_span(self):
+        """The span of the next level."""
+        return span("traversal.level", device=self.dg.device,
+                    level=self.level)
+
+    def direction(self, algo: str, level) -> Optional[bool]:
+        """Whether the next level pulls; None when the frontier is empty.
+        ``level`` is the level's span."""
+        with span("traversal.frontier_read") as rd:
+            size, edges = rd.wait(_frontier_stats, self.dg, self.frontier)
         if size == 0:
+            level.set(direction=None)
             return None
         use_pull = edges > self.threshold
+        level.set(direction="pull" if use_pull else "push",
+                  frontier_size=size, frontier_edges=edges)
         _record_frontier(algo, size, edges, use_pull)
         if use_pull:
             self.n_pull += 1
@@ -164,14 +189,18 @@ def bfs(
     Python ints."""
     schedule, alpha, impl = _resolve_traversal(
         bg_pull if bg_pull is not None else dg, schedule, alpha, impl)
-    state = _Frontier(dg, _source_index(source, dg.n), dg.m / alpha)
+    src = _source_index(source, dg.n)
+    state = _Frontier(dg, src, dg.m / alpha)
     max_iters = max_iters or dg.n
-    while state.level < max_iters:
-        use_pull = state.direction("bfs")
-        if use_pull is None:
-            break
-        state.advance(_frontier_reach(dg, bg_pull, state.frontier.float(),
-                                      use_pull, schedule, impl))
+    with span("traversal.bfs", root=src):
+        while state.level < max_iters:
+            with state.level_span() as lv:
+                use_pull = state.direction("bfs", lv)
+                if use_pull is None:
+                    break
+                state.advance(_frontier_reach(
+                    dg, bg_pull, state.frontier.float(), use_pull, schedule,
+                    impl))
     return state.depth, state.level, state.n_push, state.n_pull
 
 
@@ -199,22 +228,24 @@ def bc(
     sigma[src] = 1.0
 
     # ---------------- forward: depth + sigma ---------------- #
-    while state.level < max_levels:
-        use_pull = state.direction("bc")
-        if use_pull is None:
-            break
-        frontier = state.frontier
-        new = state.advance(_frontier_reach(
-            dg, bg_pull, frontier.float(), use_pull, schedule, impl))
-        # σ[dst] += Σ σ[src] over tree edges (src on frontier level).
-        path_msgs = torch.where(frontier, sigma, 0.0)
-        sig_in = (
-            tocab.tocab_pull(bg_pull, path_msgs, reduce="sum",
-                             schedule=schedule, impl=impl)
-            if bg_pull is not None
-            else tocab.baseline_pull(dg, path_msgs, reduce="sum")
-        )
-        sigma = torch.where(new, sig_in, sigma)
+    with span("traversal.bc", root=src):  # the forward levels
+        while state.level < max_levels:
+            with state.level_span() as lv:
+                use_pull = state.direction("bc", lv)
+                if use_pull is None:
+                    break
+                frontier = state.frontier
+                new = state.advance(_frontier_reach(
+                    dg, bg_pull, frontier.float(), use_pull, schedule, impl))
+                # σ[dst] += Σ σ[src] over tree edges (src on the frontier)
+                path_msgs = torch.where(frontier, sigma, 0.0)
+                sig_in = (
+                    tocab.tocab_pull(bg_pull, path_msgs, reduce="sum",
+                                     schedule=schedule, impl=impl)
+                    if bg_pull is not None
+                    else tocab.baseline_pull(dg, path_msgs, reduce="sum")
+                )
+                sigma = torch.where(new, sig_in, sigma)
     depth, levels = state.depth, state.level
 
     # ---------------- backward: dependency accumulation ---------------- #
@@ -260,18 +291,22 @@ def sssp(
     dist[src] = 0.0
     max_iters = max_iters or dg.n
     changed, iters = True, 0
-    while changed and iters < max_iters:
-        _record_iteration("sssp")
-        relaxed = (
-            tocab.tocab_pull(bg_pull, dist, reduce="min", combine=ADD_EDGE,
-                             schedule=schedule, impl=impl)
-            if bg_pull is not None
-            else tocab.baseline_pull(dg, dist, reduce="min",
-                                     combine=ADD_EDGE)
-        )
-        new_dist = torch.minimum(dist, relaxed)
-        changed = bool((new_dist < dist).any())
-        dist, iters = new_dist, iters + 1
+    with span("traversal.sssp", root=src):
+        while changed and iters < max_iters:
+            _record_iteration("sssp")
+            with span("traversal.level", device=dg.device, level=iters,
+                      direction="pull") as lv:
+                relaxed = (
+                    tocab.tocab_pull(bg_pull, dist, reduce="min",
+                                     combine=ADD_EDGE, schedule=schedule,
+                                     impl=impl)
+                    if bg_pull is not None
+                    else tocab.baseline_pull(dg, dist, reduce="min",
+                                             combine=ADD_EDGE)
+                )
+                new_dist = torch.minimum(dist, relaxed)
+                changed = lv.wait(bool, (new_dist < dist).any())
+            dist, iters = new_dist, iters + 1
     return dist, iters
 
 
@@ -297,19 +332,22 @@ def connected_components(
     labels = torch.arange(dg.n, dtype=torch.float32, device=dg.device)
     max_iters = max_iters or dg.n
     changed, iters = True, 0
-    while changed and iters < max_iters:
-        _record_iteration("cc")
-        fwd = (
-            tocab.tocab_pull(bg_pull, labels, reduce="min",
-                             combine=UNWEIGHTED, schedule=schedule,
-                             impl=impl)
-            if bg_pull is not None
-            else tocab.baseline_pull(dg, labels, reduce="min",
-                                     combine=UNWEIGHTED)
-        )
-        bwd = tocab.baseline_pull(dg_t, labels, reduce="min",
-                                  combine=UNWEIGHTED)
-        new = torch.minimum(labels, torch.minimum(fwd, bwd))
-        changed = bool((new < labels).any())
-        labels, iters = new, iters + 1
+    with span("traversal.cc"):
+        while changed and iters < max_iters:
+            _record_iteration("cc")
+            with span("traversal.level", device=dg.device, level=iters,
+                      direction="pull") as lv:
+                fwd = (
+                    tocab.tocab_pull(bg_pull, labels, reduce="min",
+                                     combine=UNWEIGHTED, schedule=schedule,
+                                     impl=impl)
+                    if bg_pull is not None
+                    else tocab.baseline_pull(dg, labels, reduce="min",
+                                             combine=UNWEIGHTED)
+                )
+                bwd = tocab.baseline_pull(dg_t, labels, reduce="min",
+                                          combine=UNWEIGHTED)
+                new = torch.minimum(labels, torch.minimum(fwd, bwd))
+                changed = lv.wait(bool, (new < labels).any())
+            labels, iters = new, iters + 1
     return labels.to(torch.int32), iters

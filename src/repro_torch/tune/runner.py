@@ -124,7 +124,9 @@ def _workload_fn(workload: str, g: Graph, dg, bg, candidate: Candidate,
 
 def time_fn(fn, args: Tuple, warmup: int, reps: int, **span_attrs) -> float:
     """Median wall-clock (µs) over ``reps`` measured calls, each one a
-    ``tune.trial`` obs span that waits for the card inside it."""
+    ``tune.trial`` obs span that waits for the card inside it (its
+    ``dur_s`` is set whether or not tracing is on); the calls' seconds add
+    to the counter ``tune.trial_seconds``."""
     for _ in range(max(warmup, 0)):
         obs_trace.synchronize(fn(*args))
     durs = []
@@ -132,6 +134,8 @@ def time_fn(fn, args: Tuple, warmup: int, reps: int, **span_attrs) -> float:
         with obs_trace.span("tune.trial", rep=rep, **span_attrs) as sp:
             sp.block(fn(*args))
         durs.append(sp.dur_s)
+    _obs.counter("tune.trial_seconds", "timed trial calls' seconds").inc(
+        sum(durs))
     durs.sort()
     return durs[len(durs) // 2] * 1e6
 

@@ -250,8 +250,9 @@ def test_serve_recsys_cli_records_metrics():
     from repro_torch.obs.metrics import registry
 
     trace.clear()
-    res = serve_mod.main(["--arch", "bert4rec", "--device", "cpu",
-                          "--requests", "4"])
+    with trace.enable():  # spans record only when tracing is on
+        res = serve_mod.main(["--arch", "bert4rec", "--device", "cpu",
+                              "--requests", "4"])
     assert res.scores.shape == (4, 10) and res.ids.shape == (4, 10)
     assert bool((res.ids < 5000).all()) and len(res.rep_seconds) == 20
     assert res.users_per_s > 0

@@ -214,40 +214,64 @@ def test_direction_mismatch_raises(pairs):
 
 
 def test_engine_telemetry_and_timed(pairs):
+    """An engine call's counters (``tocab.engine_traces``, ``tocab.blocks``,
+    ``tocab.edges_scanned``) and, traced, its ``tocab.pull`` span."""
+    from repro_torch.obs import trace
+
     p = pairs["weighted"]
     traces = port_registry.counter("tocab.engine_traces")
+    scanned = port_registry.counter("tocab.edges_scanned")
     before = traces.value(engine="tocab_pull", direction="pull")
+    edges = scanned.value(engine="tocab_pull", direction="pull")
     _, xt = _vals(p.g.n, seed=9)
-    out = T.timed(T.tocab_pull, p.pull, xt, engine="tp")
+    trace.clear()
+    with trace.enable():
+        out = T.tocab_pull(p.pull, xt)
     assert traces.value(engine="tocab_pull", direction="pull") == before + 1
+    assert scanned.value(engine="tocab_pull", direction="pull") == \
+        edges + p.pull.m
     assert port_registry.gauge("tocab.blocks").value(
         engine="tocab_pull") == p.pull.num_blocks
-    assert port_registry.histogram("tocab.call_seconds").stats(
-        engine="tp")["count"] >= 1
-    assert port_registry.gauge("tocab.edges_per_s").value(engine="tp") > 0
+    (ev,) = trace.events()
+    assert ev["name"] == "tocab.pull" and ev["dur_s"] > 0
+    assert ev["attrs"] == {"engine": "tocab_pull", "impl": "slab",
+                           "schedule": "uniform",
+                           "blocks": p.pull.num_blocks}
     torch.testing.assert_close(out, T.tocab_pull(p.pull, xt))
 
 
 def test_span_blocks_and_records(tmp_path):
-    """``obs.span``: nested events, ``block`` passes host tensors through
-    (a CUDA value would be synchronised), JSONL sink, span histogram."""
+    """``obs.span``: nested events with ids, ``block`` passes host tensors
+    through (a CUDA value would be synchronised), the JSONL sink written
+    when the events are read."""
     import json
 
     from repro_torch import obs
 
     sink = tmp_path / "trace.jsonl"
     obs.trace.set_sink(str(sink))
+    obs.trace.clear()
     try:
-        with obs.span("outer", graph="rmat9") as outer:
-            with obs.span("inner") as inner:
-                x = torch.ones(3)
-                assert inner.block((x, {"k": [x]}, 7))[0] is x
-            outer.set(done=True)
+        with obs.trace.enable():
+            with obs.span("outer", graph="rmat9") as outer:
+                with obs.span("inner") as inner:
+                    x = torch.ones(3)
+                    assert inner.block((x, {"k": [x]}, 7))[0] is x
+                outer.set(done=True)
+        assert not sink.exists()  # nothing written per event
+        read = obs.trace.events()
     finally:
         obs.trace.set_sink(None)
     events = [json.loads(line) for line in sink.read_text().splitlines()]
     assert [e["name"] for e in events] == ["inner", "outer"]
-    assert events[0]["parent"] == "outer" and events[0]["depth"] == 1
+    assert events == json.loads(json.dumps(read))
+    inner_ev, outer_ev = events
+    assert inner_ev["parent"] == outer_ev["id"] and inner_ev["depth"] == 1
+    assert inner_ev["root"] == outer_ev["root"] == outer_ev["id"]
+    assert outer_ev["parent"] is None
     assert events[1]["attrs"] == {"graph": "rmat9", "done": True}
-    assert obs.registry.histogram("obs.span_seconds").stats(
-        name="inner")["count"] >= 1
+    assert outer_ev["t0_ns"] <= inner_ev["t0_ns"] < inner_ev["t1_ns"] \
+        <= outer_ev["t1_ns"]
+    assert inner_ev["dur_s"] == pytest.approx(
+        (inner_ev["t1_ns"] - inner_ev["t0_ns"]) / 1e9, abs=1e-5)
+    assert "obs.span_seconds" not in obs.registry.names()

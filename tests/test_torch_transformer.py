@@ -323,9 +323,10 @@ def test_serve_cli_records_metrics():
     from repro_torch.obs import trace
     from repro_torch.obs.metrics import registry
 
-    res = serve_mod.main(["--arch", "gemma2-27b", "--device", "cpu",
-                          "--requests", "2", "--prompt-len", "5",
-                          "--max-new", "3"])
+    with trace.enable():  # spans record only when tracing is on
+        res = serve_mod.main(["--arch", "gemma2-27b", "--device", "cpu",
+                              "--requests", "2", "--prompt-len", "5",
+                              "--max-new", "3"])
     assert res.tokens.shape == (2, 3)
     names = registry.names()
     for metric in ("serve.prefill_seconds", "serve.decode_seconds",
