@@ -6,11 +6,13 @@ array** (topology-driven), as the paper argues for GPUs: the next frontier
 rides the same engines as PageRank's sums.
 
 Direction optimization (Beamer): iterations with a sparse frontier run in
-**push** (the flat ``baseline_push``); dense-frontier iterations run in
-**pull**, and only those go through TOCAB (``tocab_pull``: the fused kernel
-under ``impl="fused"``, the sparsity bins under ``schedule="balanced"``).
-The switch is the classic α test on the frontier's out-edge count,
-``m_f > m / alpha``.
+**push**, GAP's top-down step: only the frontier's ``m_f`` out-edges are
+expanded and their heads marked (``_frontier_push``), never all m;
+dense-frontier iterations run in **pull**, and only those go through TOCAB
+(``tocab_pull``: the fused kernel under ``impl="fused"``, the sparsity bins
+under ``schedule="balanced"``).  The switch is the classic α test on the
+frontier's out-edge count, ``m_f > m / alpha``, so a push level's work
+(m_f + n) is always below a scan's (m + n).
 
 The reference's ``lax.while_loop`` is a host loop here, with one
 device→host read per iteration: BFS and BC read the frontier's size and
@@ -19,9 +21,11 @@ records its telemetry (``traversal.frontier_size``,
 ``traversal.frontier_edges``, ``traversal.iterations``) from those values,
 so recording adds no synchronisation.  ``m_f`` is counted exactly, in
 int64 (the reference sums it in fp32, which rounds past 2²⁴ edges), and
-``traversal.frontier_edges_total`` sums it by direction, so that over
-``tocab.edges_scanned`` of ``baseline_push`` it says how much of the push
-levels' scan had a frontier edge.
+``traversal.frontier_edges_total`` sums it by direction.  A push level
+reads exactly its m_f arcs, so for BFS ``tocab.edges_scanned`` of
+``frontier_push`` equals the push direction's ``frontier_edges_total``.
+The level's counts also size the push level's arrays, so the read is the
+level's only synchronisation.
 
 Traced (:mod:`repro_torch.obs.trace`), a traversal is a
 ``traversal.<algo>`` span and each level a ``traversal.level`` span with
@@ -104,29 +108,77 @@ def _record_iteration(algo: str):
     _obs.counter("traversal.iterations", "").inc(algo=algo, direction="pull")
 
 
-def _frontier_stats(dg: DeviceGraph, frontier: torch.Tensor):
-    """(vertices on the frontier, their out-edges), exact, in one read."""
-    size = frontier.sum()
-    edges = (dg.out_degree * frontier).sum(dtype=torch.int64)
-    return torch.stack([size, edges]).tolist()
+#: a vertex weighs ``_COUNT`` plus its out-degree in the frontier read, so
+#: one int64 sum holds the frontier's size above bit 32 and its out-edges
+#: below, exactly: m < 2³¹, since ``rowptr`` is int32
+_COUNT = 1 << 32
+
+
+def _frontier_stats(weights: torch.Tensor, frontier: torch.Tensor):
+    """(vertices on the frontier, their out-edges), exact, in one read of
+    the sum of the frontier's ``weights``."""
+    total = torch.where(frontier, weights, 0).sum().item()
+    return total // _COUNT, total % _COUNT
+
+
+def _frontier_push(dg: DeviceGraph, frontier: torch.Tensor, size: int,
+                   edges: int) -> torch.Tensor:
+    """reached[v] = True where an out-edge of a frontier vertex carries to
+    v, reading only those ``edges`` arcs of the frontier's ``size``
+    vertices (GAP's top-down step).  Both counts come from the level's
+    frontier read, so every array has a size the host knows and nothing
+    here waits for the device.
+
+    The frontier's arcs are numbered 0 .. edges - 1, vertex after vertex;
+    a binary search in the running sum of their degrees finds each arc's
+    vertex, whose run of the src-sorted arc list (``rowptr``) gives the
+    arc's position: one thread an arc, whatever the degrees.  Indices are
+    clamped, so a frontier that disagrees with its counts gives a wrong
+    answer, never a read out of range.  On a layout with edge values an
+    arc carries where its value is > 0 (a frontier message times the
+    edge's value, as the pull engines form it); the others mark a scratch
+    slot n."""
+    tocab._record_engine("frontier_push", "push", 1, edges)
+    n = dg.n
+    reached = torch.zeros(n + 1, dtype=torch.bool, device=frontier.device)
+    if edges == 0:  # frontier vertices without out-edges
+        return reached[:n]
+    ids = torch.nonzero_static(frontier, size=size, fill_value=0).view(-1)
+    deg = dg.out_degree.take(ids)
+    end = deg.cumsum(0)  # where each vertex's arcs end in the numbering
+    arc = torch.arange(edges, device=frontier.device)
+    owner = torch.searchsorted(end, arc, right=True).clamp_max_(size - 1)
+    # arc a of frontier vertex i sits at rowptr[i] + a - (end[i] - deg[i])
+    start = (deg - end).add_(dg.rowptr.take(ids))
+    pos = start.take(owner).add_(arc).clamp_max_(dg.m - 1)
+    heads = dg.dst.take(pos)
+    if dg.vals is not None:
+        heads = torch.where(dg.vals.take(pos) > 0, heads, n)
+    return reached.index_fill_(0, heads.long(), True)[:n]
 
 
 def _frontier_reach(dg: DeviceGraph, bg_pull: Optional[BlockedGraph],
                     frontier: torch.Tensor, use_pull: bool, schedule: str,
-                    impl: str) -> torch.Tensor:
-    """reached[dst] = max over in-edges of frontier[src] (0/1 floats):
-    TOCAB pull in the dense phase, flat push in the sparse one."""
+                    impl: str, size: int, edges: int) -> torch.Tensor:
+    """Where the frontier reaches (bools), from its status array and the
+    level's counts: TOCAB pull of the frontier as 0/1 floats in the dense
+    phase (reached where the max over in-edges is > 0), the top-down
+    expansion in the sparse one."""
     if not use_pull:
-        return tocab.baseline_push(dg, frontier, reduce="max")
+        return _frontier_push(dg, frontier, size, edges)
+    frontier = frontier.float()
     if bg_pull is None:
-        return tocab.baseline_pull(dg, frontier, reduce="max")
-    return tocab.tocab_pull(bg_pull, frontier, reduce="max",
-                            schedule=schedule, impl=impl)
+        reached = tocab.baseline_pull(dg, frontier, reduce="max")
+    else:
+        reached = tocab.tocab_pull(bg_pull, frontier, reduce="max",
+                                   schedule=schedule, impl=impl)
+    return reached > 0
 
 
 class _Frontier:
     """BFS state shared by :func:`bfs` and BC's forward phase: depths, the
-    frontier as a status array, and the direction counts."""
+    frontier as a status array with its last read's counts (``size``,
+    ``edges``), and the direction counts."""
 
     def __init__(self, dg: DeviceGraph, src: int, threshold: float):
         self.dg, self.threshold = dg, threshold
@@ -135,6 +187,8 @@ class _Frontier:
         self.depth[src] = 0
         self.frontier = torch.zeros(dg.n, dtype=torch.bool, device=dg.device)
         self.frontier[src] = True
+        self.weights = dg.out_degree.long().add_(_COUNT)
+        self.size = self.edges = 0
         self.level = self.n_push = self.n_pull = 0
 
     def level_span(self):
@@ -146,7 +200,9 @@ class _Frontier:
         """Whether the next level pulls; None when the frontier is empty.
         ``level`` is the level's span."""
         with span("traversal.frontier_read") as rd:
-            size, edges = rd.wait(_frontier_stats, self.dg, self.frontier)
+            size, edges = rd.wait(_frontier_stats, self.weights,
+                                  self.frontier)
+        self.size, self.edges = size, edges
         if size == 0:
             level.set(direction=None)
             return None
@@ -160,9 +216,15 @@ class _Frontier:
             self.n_push += 1
         return use_pull
 
+    def reach(self, bg_pull: Optional[BlockedGraph], use_pull: bool,
+              schedule: str, impl: str) -> torch.Tensor:
+        """Where the current frontier reaches (:func:`_frontier_reach`)."""
+        return _frontier_reach(self.dg, bg_pull, self.frontier, use_pull,
+                               schedule, impl, self.size, self.edges)
+
     def advance(self, reached: torch.Tensor) -> torch.Tensor:
         """Make the newly reached vertices the frontier; returns it."""
-        self.frontier = (reached > 0) & (self.depth >= INF_DEPTH)
+        self.frontier = reached & (self.depth >= INF_DEPTH)
         self.level += 1
         self.depth.masked_fill_(self.frontier, self.level)
         return self.frontier
@@ -198,9 +260,7 @@ def bfs(
                 use_pull = state.direction("bfs", lv)
                 if use_pull is None:
                     break
-                state.advance(_frontier_reach(
-                    dg, bg_pull, state.frontier.float(), use_pull, schedule,
-                    impl))
+                state.advance(state.reach(bg_pull, use_pull, schedule, impl))
     return state.depth, state.level, state.n_push, state.n_pull
 
 
@@ -235,8 +295,8 @@ def bc(
                 if use_pull is None:
                     break
                 frontier = state.frontier
-                new = state.advance(_frontier_reach(
-                    dg, bg_pull, frontier.float(), use_pull, schedule, impl))
+                new = state.advance(
+                    state.reach(bg_pull, use_pull, schedule, impl))
                 # σ[dst] += Σ σ[src] over tree edges (src on the frontier)
                 path_msgs = torch.where(frontier, sigma, 0.0)
                 sig_in = (

@@ -3,9 +3,12 @@ near-free, on under ``enable()``, a recording profiler or
 ``REPRO_TORCH_TRACE=1``; ids, parents and roots; the bounded buffer; the
 spans and counters on the graph path; device markers on the card."""
 import collections
+import importlib
 import os
 import subprocess
 import sys
+import time
+import warnings
 from pathlib import Path
 
 import pytest
@@ -15,6 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 import repro_torch.core as T
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import registry
+
+# the module itself: ``repro_torch.core`` re-exports its functions
+traversal = importlib.import_module("repro_torch.core.traversal")
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
@@ -145,13 +151,16 @@ def test_pagerank_spans(graph):
 def test_bfs_level_spans_and_counters(graph):
     """``traversal.level`` directions match the returned push and pull
     counts (the last read, of an empty frontier, has none), each holds a
-    ``traversal.frontier_read``; ``tocab.edges_scanned`` grows by m a push
-    level and ``traversal.frontier_edges_total`` by each level's m_f."""
+    ``traversal.frontier_read``; ``traversal.frontier_edges_total`` grows
+    by each level's m_f, and ``tocab.edges_scanned`` of ``frontier_push`` by
+    the push levels' m_f alone: a push level reads the frontier's arcs, not
+    all m, and the flat ``baseline_push`` runs no more."""
     dg, bg = graph
     src = int(torch.argmax(dg.out_degree))
     scanned = registry.counter("tocab.edges_scanned")
     useful = registry.counter("traversal.frontier_edges_total")
-    s0 = scanned.value(engine="baseline_push", direction="push")
+    s0 = {e: scanned.value(engine=e, direction="push")
+          for e in ("frontier_push", "baseline_push")}
     u0 = {d: useful.value(algo="bfs", direction=d) for d in ("push", "pull")}
     with trace.enable():
         depth, levels, push, pull = T.bfs(dg, bg, src, alpha=15.0)
@@ -169,12 +178,59 @@ def test_bfs_level_spans_and_counters(graph):
         reads = [k for k in evs if k["parent"] == e["id"]
                  and k["name"] == "traversal.frontier_read"]
         assert len(reads) == 1 and reads[0]["blocked_s"] > 0
-    assert scanned.value(engine="baseline_push",
-                         direction="push") == s0 + push * dg.m
+    m_f = {d: sum(e["attrs"]["frontier_edges"] for e in lv
+                  if e["attrs"]["direction"] == d) for d in ("push", "pull")}
     for d in ("push", "pull"):
-        m_f = sum(e["attrs"]["frontier_edges"] for e in lv
-                  if e["attrs"]["direction"] == d)
-        assert useful.value(algo="bfs", direction=d) == u0[d] + m_f
+        assert useful.value(algo="bfs", direction=d) == u0[d] + m_f[d]
+    assert 0 < m_f["push"] < push * dg.m
+    assert scanned.value(engine="frontier_push",
+                         direction="push") == s0["frontier_push"] + m_f["push"]
+    assert scanned.value(engine="baseline_push",
+                         direction="push") == s0["baseline_push"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", [False, True],
+                         ids=["unweighted", "weighted"])
+def test_push_level_synchronises_only_at_its_read(monkeypatch, weights):
+    """On the card, a push level waits for the device once, in its
+    frontier read: each synchronising call (``set_sync_debug_mode``) is
+    stamped on the spans' host clock and found in its level.  Its depths
+    and counts equal those of push levels that scan every arc
+    (``tocab.baseline_push``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = T.rmat_graph(14, 16, seed=2, undirected=True, weights=weights)
+    dg = T.DeviceGraph.from_host(g, device="cuda")
+    src = int(torch.argmax(dg.out_degree))
+    T.bfs(dg, None, src)  # the first call's allocations
+    stamps = []
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = lambda *a, **k: stamps.append(
+            time.perf_counter_ns())
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.enable():
+                out = T.bfs(dg, None, src)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    evs = trace.events()
+    pushes = [e for e in evs if e["name"] == "traversal.level"
+              and e["attrs"]["direction"] == "push"]
+    assert len(pushes) == out[2] >= 2
+    for lv in pushes:
+        (rd,) = [e for e in evs if e["parent"] == lv["id"]]
+        assert rd["name"] == "traversal.frontier_read"
+        inside = [t for t in stamps if lv["t0_ns"] <= t <= lv["t1_ns"]]
+        assert len(inside) == 1 and rd["t0_ns"] <= inside[0] <= rd["t1_ns"]
+    monkeypatch.setattr(
+        traversal, "_frontier_push",
+        lambda dg, frontier, size, edges: T.baseline_push(
+            dg, frontier.float(), reduce="max") > 0)
+    scan = T.bfs(dg, None, src)
+    assert torch.equal(out[0], scan[0]) and out[1:] == scan[1:]
 
 
 @pytest.mark.parametrize("algo", ["bc", "sssp", "cc"])

@@ -87,6 +87,49 @@ def pairs():
     return {True: Pair(g, 64), False: Pair(_unweighted(g), 64)}
 
 
+def _frontier_shapes():
+    """Graphs whose frontiers take the push level's edge cases, each with
+    its Beamer α (None: the default 15) and sources: the rmat graph's
+    edges, unweighted, with a part added beside them."""
+    base = R.rmat_graph(scale=8, edge_factor=6, seed=11)
+    src, dst, n = *base.edges(), base.n
+    # n → n+1 → 32 sinks: from n, a frontier of vertices without
+    # out-edges (size 32, m_f 0) pushes at α 15
+    sinks = R.from_edges(
+        n + 34, np.concatenate([src, [n], np.full(32, n + 1)]),
+        np.concatenate([dst, [n + 1], np.arange(n + 2, n + 34)]))
+    # a hub whose arcs reach all but 16 vertices, entered from vertex 5;
+    # α 1 pushes every level (m_f <= m)
+    hub = R.from_edges(n + 1, np.concatenate([src, np.full(n - 16, n), [5]]),
+                       np.concatenate([dst, np.arange(8, n - 8), [n]]))
+    # edge values 0 and < 0 carry no frontier
+    vals = np.random.default_rng(5).choice(
+        np.array([-1.0, 0.0, 0.5, 1.0, 2.0], np.float32), size=src.size)
+    signed = R.from_edges(n, src, dst, vals=vals)
+    # a second rmat graph beside the first; α 1e-9 never pulls
+    other = R.rmat_graph(scale=7, edge_factor=6, seed=4)
+    osrc, odst = other.edges()
+    two = R.from_edges(n + other.n, np.concatenate([src, osrc + n]),
+                       np.concatenate([dst, odst + n]))
+    return {"sinks": (sinks, None, (n, 5)), "hub": (hub, 1.0, (n, 5)),
+            "signed": (signed, None, (5, 0, 200)),
+            "components": (two, 1e-9, (5, n + 3))}
+
+
+@pytest.fixture(scope="module")
+def shapes():
+    return {k: (Pair(g, 64), alpha, sources)
+            for k, (g, alpha, sources) in _frontier_shapes().items()}
+
+
+def _case(pairs, shapes, graph):
+    """(pair, α keywords, sources) of a ``graph`` parameter."""
+    if graph in ("weighted", "unweighted"):
+        return pairs[graph == "weighted"], {}, (5, 0, 200)
+    p, alpha, sources = shapes[graph]
+    return p, ({} if alpha is None else {"alpha": alpha}), sources
+
+
 def to_torch(x):
     return torch.from_numpy(np.array(x))
 
@@ -100,32 +143,52 @@ def assert_equal(port, ref):
 weighted_ids = pytest.mark.parametrize("weighted", [True, False],
                                        ids=["weighted", "unweighted"])
 engine_ids = pytest.mark.parametrize("engine", list(ENGINES))
+#: the rmat pair, weighted and not, and the frontier shapes
+graph_ids = pytest.mark.parametrize(
+    "graph", ["weighted", "unweighted", "sinks", "hub", "signed",
+              "components"])
 
 
-@weighted_ids
+def _bc_counts(registry):
+    c = registry.counter("traversal.iterations")
+    return tuple(c.value(algo="bc", direction=d) for d in ("push", "pull"))
+
+
+@graph_ids
 @engine_ids
-def test_bfs_matches_reference(pairs, engine, weighted):
-    p = pairs[weighted]
+def test_bfs_matches_reference(pairs, shapes, engine, graph):
+    p, alpha, sources = _case(pairs, shapes, graph)
     rb, pb, kw = p.layouts(engine)
-    for source in (5, 0, 200):
+    for source in sources:
         depth, levels, n_push, n_pull = R.bfs(p.rdg, rb, jnp.int32(source),
-                                              **kw)
-        out = T.bfs(p.dg, pb, source, **kw)
+                                              **alpha, **kw)
+        out = T.bfs(p.dg, pb, source, **alpha, **kw)
         assert_equal(out[0], depth)
         assert out[1:] == (int(levels), int(n_push), int(n_pull))
 
 
-@weighted_ids
+@graph_ids
 @engine_ids
-def test_bc_matches_reference(pairs, engine, weighted):
-    p = pairs[weighted]
+def test_bc_matches_reference(pairs, shapes, engine, graph):
+    """Scores, depths and σ, and the forward levels' directions.  On signed
+    edge values σ sums them, so it reaches 0 and below, and both packages'
+    scores overflow to ±inf and NaN alike."""
+    p, alpha, sources = _case(pairs, shapes, graph)
+    source = 3 if graph in ("weighted", "unweighted") else sources[0]
     rb, pb, kw = p.layouts(engine)
-    scores, depth, sigma = R.bc(p.rdg, rb, jnp.int32(3), **kw)
-    out = T.bc(p.dg, pb, 3, **kw)
-    torch.testing.assert_close(out[0], to_torch(scores))
+    ref0, port0 = _bc_counts(ref_registry), _bc_counts(port_registry)
+    scores, depth, sigma = R.bc(p.rdg, rb, jnp.int32(source), **alpha, **kw)
+    jax.effects_barrier()
+    out = T.bc(p.dg, pb, source, **alpha, **kw)
+    signed = graph == "signed"
+    torch.testing.assert_close(out[0], to_torch(scores), equal_nan=signed)
     assert_equal(out[1], depth)
     torch.testing.assert_close(out[2], to_torch(sigma))
-    assert float(out[0].sum()) > 0
+    if not signed:
+        assert float(out[0].sum()) > 0
+    moved = [a - b for a, b in zip(_bc_counts(port_registry), port0)]
+    assert moved == [a - b for a, b in zip(_bc_counts(ref_registry), ref0)]
+    assert sum(moved) > 0
 
 
 @weighted_ids
