@@ -26,7 +26,9 @@ import time
 T0 = time.perf_counter()  # set-up is timed from the start of the process
 
 import argparse  # noqa: E402
+import bisect  # noqa: E402
 import importlib.util  # noqa: E402
+import itertools  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import random  # noqa: E402
@@ -168,15 +170,20 @@ def reduce_trace(events: list, top: int = 10) -> dict:
     lo = min(e.time_range.start for e in events)
     hi = max(e.time_range.end for e in events)
     edges = [lo] + [x for span in busy for x in span] + [hi]
+    # host ops by start (ties in list order), with the running maximum of
+    # their ends: the first op among those starting by ``mid`` whose
+    # running end reaches ``mid`` is the earliest-starting op covering it
+    host.sort(key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in host]
+    reach = list(itertools.accumulate((e.time_range.end for e in host), max))
     gaps: dict = {}
     for a, b in zip(edges[0::2], edges[1::2]):
         if b <= a:
             continue
         mid = (a + b) / 2
-        cover = [e for e in host
-                 if e.time_range.start <= mid <= e.time_range.end]
-        name = (min(cover, key=lambda e: e.time_range.start).name
-                if cover else "python")
+        n = bisect.bisect_right(starts, mid)
+        i = bisect.bisect_left(reach, mid, 0, n)
+        name = host[i].name if i < n else "python"
         gaps[name] = gaps.get(name, 0.0) + (b - a) / 1e6
     by_time = sorted(kernels.items(), key=lambda kv: -kv[1]["seconds"])
     return {

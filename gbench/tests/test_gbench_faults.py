@@ -19,6 +19,7 @@ tocab_mod = importlib.import_module("repro_torch.core.tocab")
 trav_mod = importlib.import_module("repro_torch.core.traversal")
 
 PR_CELLS = ["kron24.pr", "urand24.pr"]
+BFS_CELLS = ["kron24.bfs", "urand24.bfs"]
 
 
 @pytest.fixture
@@ -26,11 +27,13 @@ def root(tmp_path):
     return tiny_layout(tmp_path, scale=11)
 
 
-@pytest.mark.parametrize("cell", PR_CELLS + ["kron24.bfs"])
+@pytest.mark.parametrize("cell", PR_CELLS + BFS_CELLS)
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_control_is_not_correct(tmp_path, cell, seed):
     # BFS's control cuts a traversal's tail, which a symmetric graph of
     # 2**11 vertices lacks from most roots: at 2**14, 63 of the 64 have one
+    # on kron24; on urand24 the level past the largest holds ~16 % of it,
+    # under urand24's cut of a half
     root = tiny_layout(tmp_path, scale=14 if cell.endswith(".bfs") else 11)
     assert run_cell(root, cell, seed=seed)["correct"] is True
     out = run_cell(root, cell, seed=seed, control=True)
@@ -91,7 +94,8 @@ def bfs_altered(mp):
 
 @pytest.mark.parametrize("cell,fault", [
     (c, f) for c in PR_CELLS for f in (pr_unchanged, pr_half, pr_altered)
-] + [("kron24.bfs", f) for f in (bfs_unchanged, bfs_half, bfs_altered)],
+] + [(c, f) for c in BFS_CELLS
+     for f in (bfs_unchanged, bfs_half, bfs_altered)],
     ids=lambda x: x if isinstance(x, str) else x.__name__)
 def test_fault_is_not_correct(root, monkeypatch, cell, fault):
     fault(monkeypatch)

@@ -1,6 +1,8 @@
 """Each metric reader on a synthetic record, and the reduction of a
 profiler trace on synthetic events."""
 import json
+import random
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -126,3 +128,103 @@ def test_reduce_trace():
     assert gaps["aten::item"] == pytest.approx(30e-6)
     assert gaps["aten::add"] == pytest.approx(5e-6)
     assert gaps["python"] == pytest.approx(20e-6)
+
+
+def scan_reduce_trace(events: list, top: int = 10) -> dict:
+    """The plain reference: each idle gap scans every host op."""
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("aten::")]
+    kernels: dict = {}
+    for e in dev:
+        k = kernels.setdefault(e.name, {"count": 0, "seconds": 0.0})
+        k["count"] += 1
+        k["seconds"] += (e.time_range.end - e.time_range.start) / 1e6
+    busy = load("run.py")._union([(e.time_range.start, e.time_range.end)
+                                  for e in dev])
+    if not busy:
+        return {"busy_s": 0.0, "kernels": kernels, "device_ops": [],
+                "idle_gaps": []}
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    edges = [lo] + [x for span in busy for x in span] + [hi]
+    gaps: dict = {}
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
+            continue
+        mid = (a + b) / 2
+        cover = [e for e in host
+                 if e.time_range.start <= mid <= e.time_range.end]
+        name = (min(cover, key=lambda e: e.time_range.start).name
+                if cover else "python")
+        gaps[name] = gaps.get(name, 0.0) + (b - a) / 1e6
+    by_time = sorted(kernels.items(), key=lambda kv: -kv[1]["seconds"])
+    return {
+        "busy_s": sum(b - a for a, b in busy) / 1e6,
+        "kernels": kernels,
+        "device_ops": [[n[:160], v["seconds"]] for n, v in by_time[:top]],
+        "idle_gaps": sorted(([n, s] for n, s in gaps.items()),
+                            key=lambda t: -t[1])[:top],
+    }
+
+
+def random_trace(rng: random.Random, span: int) -> list:
+    """Nested host ops (children may share a parent's start or end) and
+    overlapping kernels, on a coarse integer clock so that gap middles
+    fall on op boundaries; in no particular order."""
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = []
+
+    def host(a, b, depth):
+        events.append(ev(rng.choice(["aten::item", "aten::to", "aten::full",
+                                     "aten::take", "cudaLaunchKernel"]),
+                         a, b, cpu))
+        t = a
+        while depth < 3 and t < b and rng.random() < 0.7:
+            c0 = rng.randint(t, b)
+            c1 = rng.randint(c0, b)
+            host(c0, c1, depth + 1)
+            t = c1 + rng.randint(0, 2)
+
+    t = 0
+    while t < span:
+        b = t + rng.randint(0, 40)
+        host(t, b, 0)
+        t = b + rng.randint(-5, 10)
+    for _ in range(rng.randint(0, span // 10)):
+        a = rng.randint(0, span)
+        events.append(ev(f"kernel_{rng.randint(0, 12)}", a,
+                         a + rng.randint(0, 30), cuda))
+    rng.shuffle(events)
+    return events
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_reduce_trace_matches_the_scan(seed):
+    rng = random.Random(seed)
+    fast = load("run.py").reduce_trace
+    for span in (0, 50, 400, 3000):
+        events = random_trace(rng, span)
+        if not events:
+            continue
+        assert fast(list(events)) == scan_reduce_trace(list(events))
+
+
+def test_reduce_trace_is_a_sweep():
+    """20 k idle gaps against 80 k host ops, as a deep traversal's slice
+    has: well within a traced run's time."""
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = []
+    for i in range(20_000):
+        t = 100 * i
+        events.append(ev("kernel", t, t + 40, cuda))
+        events.append(ev("aten::nonzero_static", t + 45, t + 95, cpu))
+        events.append(ev("aten::sum", t + 45, t + 70, cpu))
+        events.append(ev("aten::to", t + 50, t + 60, cpu))
+        events.append(ev("aten::item", t + 42, t + 44, cpu))
+    t0 = time.perf_counter()
+    out = load("run.py").reduce_trace(events)
+    assert time.perf_counter() - t0 < 5.0
+    # 60 us after each kernel; the last ends with the last host op
+    assert dict(out["idle_gaps"]) == {
+        "aten::nonzero_static": pytest.approx(19_999 * 60e-6 + 55e-6)}

@@ -5,13 +5,11 @@ records no such spans)."""
 import pytest
 
 from gbench_testlib import load
-from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace
 
-NAMES = ("pr_read_gap_ms", "pr_host_ms_per_iter",
-         "bfs_push_level_device_ms", "bfs_push_useful_frac")
+NAMES = ("pr_read_gap_ms", "pr_host_ms_per_iter", "bfs_push_level_device_ms")
 ALGO = {"pr_read_gap_ms": "pagerank", "pr_host_ms_per_iter": "pagerank",
-        "bfs_push_level_device_ms": "bfs", "bfs_push_useful_frac": "bfs"}
+        "bfs_push_level_device_ms": "bfs"}
 
 
 def read(name, algo, events, monkeypatch):
@@ -67,21 +65,6 @@ def test_bfs_readers(monkeypatch):
     ]
     assert read("bfs_push_level_device_ms", "bfs", events, monkeypatch) \
         == pytest.approx(33.0)
-    reg = obs_metrics.Registry()
-    reg.counter("traversal.frontier_edges_total").inc(
-        30, algo="bfs", direction="push")
-    reg.counter("traversal.frontier_edges_total").inc(
-        900, algo="bfs", direction="pull")
-    reg.counter("tocab.edges_scanned").inc(
-        2000, engine="baseline_push", direction="push")
-    reg.counter("tocab.edges_scanned").inc(
-        1000, engine="tocab_pull_fused", direction="pull")
-    monkeypatch.setattr(obs_metrics, "registry", reg)
-    assert read("bfs_push_useful_frac", "bfs", events, monkeypatch) == \
-        pytest.approx(30 / 2000)
-    # no push level traced: nothing to read, whatever the counters hold
-    assert read("bfs_push_useful_frac", "bfs", events[1:2], monkeypatch) \
-        is None
 
 
 @pytest.mark.parametrize("name", NAMES)
